@@ -1,0 +1,334 @@
+"""M2Trans in PyTorch; port of m2trans_tpu/models/m2trans.py.
+
+Architecture (reference models/M2Trans_network.py): reflect pad to a
+multiple of 32 -> head 3x3 reflect conv -> n_blocks x CFTM -> global
+residual -> pixel-shuffle tail -> clamp [0, rgb_range] -> crop.
+
+The modules carry the reference's state_dict keys (``head.*``,
+``body.{i}.attn{k}.qkv_conv/rel_h/rel_w``, ``body.{i}.feed_forward.0.*``,
+``tail.{0,3,6}.*``, the frozen ``sub_mean``/``add_mean``), so a reference
+``.pt`` loads with ``load_state_dict(strict=True)``. They hold parameters
+only: the forward is the function :func:`m2trans_apply` on NHWC tensors.
+
+Numerics (:class:`ComputePolicy`):
+  * f32 parity: the plain composition of ``cftm_apply`` and the
+    conv -> shuffle tail, TF32 off for matmul and cuDNN (the analogue of
+    ``Precision.HIGHEST``);
+  * bf16: the structure of the JAX ``_cftm_apply_fused`` — IN statistics,
+    head conv, ff conv, residuals and the depth-to-space are plain torch;
+    each CFTM runs its 4 branches through K1 at levels 0/1/2/2 and the tail
+    through K2 (32 + 1 launches for an 8-block forward). With
+    ``use_kernels`` the kernel wrappers run (plain versions on CPU
+    tensors); without, the plain versions run on any device.
+
+The cascade average z_k = (xn_k + o_{k-1}) / 2 enters K1 as its x_add
+input with r = 0.5 and the instance-norm affine halved: in f32,
+x*(s/2) + t/2 + o/2 equals ((x*s + t) + o)/2 exactly (every scaling is a
+power of two), so unlike the JAX fused path's ``0.5/s`` fold this adds no
+rounding.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from m2trans_tpu_torch.config import Config
+from m2trans_tpu_torch.ops.conv import conv2d, gelu_exact
+from m2trans_tpu_torch.ops.halo_attention import halo_attention
+from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch, cftm_branch_plain
+from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_apply
+from m2trans_tpu_torch.ops.norm import in_stats, instance_norm
+from m2trans_tpu_torch.ops.pad import pad_to_multiple
+from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle_fast, ps_weight_perm
+from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputePolicy:
+    """Numerics policy threaded through the forward pass. ``use_kernels``
+    is the config's ``use_pallas``: in bf16 it routes K1/K2 through their
+    kernel wrappers."""
+
+    dtype: torch.dtype = torch.float32
+    use_kernels: bool = False
+
+
+def policy_from_config(cfg: Config) -> ComputePolicy:
+    if cfg.dtype == "bfloat16":
+        return ComputePolicy(dtype=torch.bfloat16, use_kernels=cfg.use_pallas)
+    return ComputePolicy()
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter holders with the reference's keys)
+# ---------------------------------------------------------------------------
+
+
+class TBlock(nn.Module):
+    """Halo-attention block parameters (reference TBlock, live config)."""
+
+    def __init__(self, ch: int, block: int = 8, halo: int = 1):
+        super().__init__()
+        win = block + 2 * halo
+        self.rel_h = nn.Parameter(torch.empty(1, win, 1, ch // 2))
+        self.rel_w = nn.Parameter(torch.empty(1, 1, win, ch // 2))
+        self.qkv_conv = nn.Conv2d(ch, 3 * ch, kernel_size=1, bias=False)
+
+
+class CFTM(nn.Module):
+    """Coarse-to-fine module parameters (reference CFTM, norm=True)."""
+
+    def __init__(self, nf: int):
+        super().__init__()
+        self.attn1 = TBlock(nf // 4)
+        self.attn2 = TBlock(nf)
+        self.attn3 = TBlock(nf * 4)
+        self.attn4 = TBlock(nf * 4)
+        self.feed_forward = nn.Sequential(
+            nn.Conv2d(nf, nf, kernel_size=3, padding=1))
+
+
+class M2Trans(nn.Module):
+    """Reference module tree; ``forward`` is :func:`m2trans_apply` with
+    the config's policy (NHWC in, NHWC out)."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        nf, s = cfg.n_feats, cfg.scale
+        self.sub_mean = nn.Conv2d(3, 3, kernel_size=1)
+        self.add_mean = nn.Conv2d(3, 3, kernel_size=1)
+        for ms in (self.sub_mean, self.add_mean):
+            ms.requires_grad_(False)  # frozen in the reference
+        self.head = nn.Conv2d(cfg.colors, nf, kernel_size=3, padding=1)
+        self.body = nn.ModuleList([CFTM(nf) for _ in range(cfg.n_blocks)])
+        if s == 4:
+            self.tail = nn.Sequential(
+                nn.Conv2d(nf, nf * 4, 1), nn.PixelShuffle(2), nn.GELU(),
+                nn.Conv2d(nf, nf * 4, 1), nn.PixelShuffle(2), nn.GELU(),
+                nn.Conv2d(nf, 3, 3, padding=1, bias=False))
+        else:
+            self.tail = nn.Sequential(
+                nn.Conv2d(nf, nf * s * s, 1), nn.PixelShuffle(s), nn.GELU(),
+                nn.Conv2d(nf, 3, 3, padding=1, bias=False))
+
+    def tail_params(self):
+        """The tail as tail_phase's params dict (OIHW weights)."""
+        t = self.tail
+        if self.cfg.scale == 4:
+            return {"c0": {"w": t[0].weight, "b": t[0].bias},
+                    "c1": {"w": t[3].weight, "b": t[3].bias},
+                    "c2": {"w": t[6].weight}}
+        return {"c0": {"w": t[0].weight, "b": t[0].bias},
+                "c1": {"w": t[3].weight}}
+
+    def forward(self, x: torch.Tensor,
+                policy: Optional[ComputePolicy] = None) -> torch.Tensor:
+        return m2trans_apply(self, x, self.cfg, policy)
+
+
+# ---------------------------------------------------------------------------
+# Seeded init (PyTorch's distributions, as init_m2trans of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_m2trans(cfg: Config, seed: int = 0,
+                 device: Optional[torch.device] = None) -> M2Trans:
+    """A model with PyTorch's init distributions, drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` (so one seed gives the same
+    weights on every device), then moved to ``device``:
+    conv weight and bias U(+-1/sqrt(fan_in)); qkv N(0, sqrt(2/(3ch)));
+    rel_h, rel_w N(0, 1); the MeanShift convs fixed."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        model = M2Trans(cfg)
+    model = model.to_empty(device="cpu")
+
+    def uniform_(p, bound):
+        p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound) - bound)
+
+    qkv = set()
+    for mod in model.modules():
+        if isinstance(mod, TBlock):
+            ch = mod.qkv_conv.in_channels
+            mod.qkv_conv.weight.copy_(torch.randn(
+                mod.qkv_conv.weight.shape, generator=gen) * math.sqrt(2.0 / (3 * ch)))
+            mod.rel_h.copy_(torch.randn(mod.rel_h.shape, generator=gen))
+            mod.rel_w.copy_(torch.randn(mod.rel_w.shape, generator=gen))
+            qkv.add(mod.qkv_conv)
+        elif isinstance(mod, nn.Conv2d) and mod not in qkv:
+            fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            uniform_(mod.weight, math.sqrt(1.0 / fan_in))
+            if mod.bias is not None:
+                uniform_(mod.bias, math.sqrt(1.0 / fan_in))
+    mean = torch.tensor([0.4488, 0.4371, 0.4040])
+    for ms, sign in ((model.sub_mean, -1.0), (model.add_mean, 1.0)):
+        ms.weight.copy_(torch.eye(3).reshape(3, 3, 1, 1))
+        ms.bias.copy_(sign * cfg.rgb_range * mean)
+    return model.to(device) if device is not None else model
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-f32 matmuls and convolutions for f32 parity mode."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
+    """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns.
+    Kept on the block between calls (not in its state_dict) and rebuilt
+    when the weight's storage or version changes."""
+    w = tb.qkv_conv.weight
+    key = (dtype, w.data_ptr(), w._version)
+    hit = tb.__dict__.get("_qkv_cache")
+    if hit is None or hit[0] != key:
+        wt = w.detach().reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous()
+        hit = tb.__dict__["_qkv_cache"] = (key, wt)
+    return hit[1]
+
+
+def _rel(tb: TBlock):
+    win, c2 = tb.rel_h.shape[1], tb.rel_h.shape[3]
+    return (tb.rel_h.reshape(win, c2).float().contiguous(),
+            tb.rel_w.reshape(win, c2).float().contiguous())
+
+
+def tblock_apply(tb: TBlock, x: torch.Tensor, *, block: int = 8,
+                 halo: int = 1) -> torch.Tensor:
+    """Plain halo-attention block (f32 path): qkv 1x1 conv, halo attention."""
+    qkv = conv2d(x, tb.qkv_conv.weight, padding="valid")
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    rel_h, rel_w = _rel(tb)
+    return halo_attention(q, k, v, rel_h, rel_w, block=block, halo=halo)
+
+
+_BRANCHES = (("attn1", 0), ("attn2", 1), ("attn3", 2), ("attn4", 2))
+
+
+def cftm_apply(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
+               block: int = 8, halo: int = 1) -> torch.Tensor:
+    """Coarse-to-Fine Transformer Module (reference CFTM.forward)."""
+    if policy.dtype == torch.bfloat16:
+        return _cftm_apply_fused(blk, x, policy=policy, block=block, halo=halo)
+    xs = torch.chunk(instance_norm(x), 4, dim=-1)
+    outs, prev = [], None
+    for (name, levels), xk in zip(_BRANCHES, xs):
+        if prev is not None:
+            xk = (xk + prev) * 0.5
+        z = xk
+        for _ in range(levels):
+            z = haar_dwt(z)
+        z = tblock_apply(getattr(blk, name), z, block=block, halo=halo)
+        for _ in range(levels):
+            z = haar_iwt(z)
+        prev = z + xk
+        outs.append(prev)
+    ff = blk.feed_forward[0]
+    return conv2d(torch.cat(outs, dim=-1), ff.weight, ff.bias,
+                  padding="zeros") + x
+
+
+def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
+                      block: int, halo: int) -> torch.Tensor:
+    """bf16 CFTM: IN statistics in plain torch, each branch one K1 call
+    (affine, cascade add, DWT, qkv, attention, IWT, residual), then the ff
+    conv and the module residual in plain torch."""
+    branch = cftm_branch if policy.use_kernels else cftm_branch_plain
+    x = x.to(policy.dtype)
+    inv, tfull = in_stats(x)
+    cb = x.shape[-1] // 4
+    outs, prev = [], None
+    for k, (name, levels) in enumerate(_BRANCHES):
+        tb = getattr(blk, name)
+        sk = inv[:, k * cb:(k + 1) * cb].contiguous()
+        tk = tfull[:, k * cb:(k + 1) * cb].contiguous()
+        if prev is not None:
+            sk, tk = sk * 0.5, tk * 0.5
+        rel_h, rel_w = _rel(tb)
+        prev = branch(x[..., k * cb:(k + 1) * cb], _qkv_w(tb, policy.dtype),
+                      rel_h, rel_w, sk, tk, x_add=prev, r=0.5, levels=levels,
+                      block=block, halo=halo)
+        outs.append(prev)
+    ff = blk.feed_forward[0]
+    return conv2d(torch.cat(outs, dim=-1), ff.weight, ff.bias, padding="zeros",
+                  dtype=policy.dtype) + x
+
+
+def _conv_ps_gelu(x, w, b, r):
+    """1x1 conv -> PixelShuffle(r) -> GELU as conv with output channels in
+    depth-to-space order -> GELU -> fast shuffle (bit-identical order)."""
+    perm = torch.as_tensor(ps_weight_perm(w.shape[0] // (r * r), r),
+                           device=w.device)
+    y = conv2d(x, w[perm], b[perm], padding="valid")
+    return pixel_shuffle_fast(gelu_exact(y), r)
+
+
+def tail_apply(p, x: torch.Tensor, *, scale: int, policy: ComputePolicy,
+               rgb_range: float = 1.0) -> torch.Tensor:
+    """Pixel-shuffle tail. bf16: the phase-plane K2 (already clamped);
+    f32: the conv -> shuffle composition of the reference."""
+    if policy.dtype == torch.bfloat16:
+        return tail_band_apply(p, x, scale=scale, rgb_range=rgb_range,
+                               dtype=policy.dtype, use_kernel=policy.use_kernels)
+    if scale == 4:
+        x = _conv_ps_gelu(x, p["c0"]["w"], p["c0"]["b"], 2)
+        x = _conv_ps_gelu(x, p["c1"]["w"], p["c1"]["b"], 2)
+        return conv2d(x, p["c2"]["w"], padding="reflect")
+    x = _conv_ps_gelu(x, p["c0"]["w"], p["c0"]["b"], scale)
+    return conv2d(x, p["c1"]["w"], padding="reflect")
+
+
+@torch.no_grad()
+def m2trans_apply(model: M2Trans, x: torch.Tensor, cfg: Config,
+                  policy: Optional[ComputePolicy] = None) -> torch.Tensor:
+    """Full forward: (B, H, W, colors) in [0, rgb_range] ->
+    (B, H*scale, W*scale, 3), in the policy's dtype."""
+    if policy is None:
+        policy = policy_from_config(cfg)
+    guard = _no_tf32() if policy.dtype == torch.float32 else contextlib.nullcontext()
+    with guard:
+        h, w = x.shape[1], x.shape[2]
+        x = pad_to_multiple(x, cfg.pad_multiple).to(policy.dtype)
+        res = conv2d(x, model.head.weight, model.head.bias, padding="reflect",
+                     dtype=policy.dtype)
+        y = res
+        for blk in model.body:
+            y = cftm_apply(blk, y, policy=policy, block=cfg.block_size,
+                           halo=cfg.halo_size)
+        y = tail_apply(model.tail_params(), res + y, scale=cfg.scale,
+                       policy=policy, rgb_range=cfg.rgb_range)
+        y = torch.clamp(y, 0.0, cfg.rgb_range)
+        return y[:, : h * cfg.scale, : w * cfg.scale, :]
+
+
+MICRO_BATCH = 8
+
+
+def m2trans_apply_microbatched(model: M2Trans, x: torch.Tensor, cfg: Config,
+                               policy: Optional[ComputePolicy] = None,
+                               micro_batch: int = MICRO_BATCH) -> torch.Tensor:
+    """:func:`m2trans_apply` over chunks of ``micro_batch`` images (the JAX
+    package's serving batch; not re-tuned for the card yet)."""
+    b = x.shape[0]
+    if b <= micro_batch or b % micro_batch:
+        return m2trans_apply(model, x, cfg, policy)
+    return torch.cat([m2trans_apply(model, xc, cfg, policy)
+                      for xc in torch.split(x, micro_batch)], dim=0)

@@ -1,0 +1,121 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+The sources are ``m2trans_tpu_torch/csrc/*.cu``, compiled at first use by
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o <build dir>/libm2t_kernels_<hash>.so csrc/*.cu
+
+into ``m2trans_tpu_torch/build/``, beside the sources it is built from: in
+a checkout a directory that ``.gitignore``'s ``build/`` rule covers, in an
+installed copy a directory of that installation alone. The library has a
+plain C interface, so it builds in seconds; nothing includes PyTorch's
+headers. Its name carries a hash of the sources, so an edited source is
+rebuilt.
+
+Each C entry point launches on the stream it is given, allocates nothing
+and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero
+code. There is no fallback: a missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
+
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# argtypes of every C entry point (csrc/*.cu)
+SIGNATURES = {
+    "m2t_cftm_branch": [P, P, P, P, P, P, P, P,   # x xadd s t w relh relw out
+                        I, I, I, I, I,             # B H W Cb levels
+                        LL, LL, LL, LL, LL, LL,    # x / xadd strides b, h, w
+                        F, P],                     # r, stream
+    "m2t_cftm_branch_smem": [I],
+    "m2t_tail_band": [P, P, P, P, P, P,            # y w0 b0 w1 b1 w3
+                      P, P, P, P, P,               # lc rc top bot out
+                      I, I, I, I, I, F, P],        # B H W nf scale rgb stream
+    "m2t_tail_band_smem": [I],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the nvcc run of this process, if any
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from m2trans_tpu_torch/csrc at first use")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libm2t_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if their library is not built yet; return its
+    path."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = dll
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,145 @@
+"""K1, the fused CFTM wavelet branch: wrapper, launch count and plain
+version.
+
+Replaces the TPU kernels behind ``cftm_branch_fused``
+(m2trans_tpu/ops/pallas/halo_attn.py: ``_cascade_kernel`` via
+``_cascade_banded_impl``, ``_cascade_tile_kernel`` via
+``_cascade_tiled_impl``; m2trans_tpu/ops/pallas/halo_attn_packed.py:
+``_packed_cascade_kernel`` via ``packed_cascade_core``,
+``_packed_front_kernel`` via ``packed_front_core``). Row bands, column
+slabs and lane packing were TPU choices; on the card they are one kernel,
+``csrc/cftm_branch.cu``, whose header says what bounds it and how its
+design answers that.
+
+    out = B(z) + z,   z = (x*s + t) [+ r*x_add]   (zero outside the frame)
+    B   = DWT^L -> qkv -> 8x8-block / 10x10-window halo attention -> IWT^L
+
+:func:`cftm_branch` launches the kernel for CUDA tensors and runs
+:func:`cftm_branch_plain` for CPU tensors only; anything else raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from m2trans_tpu_torch.ops.halo_attention import (
+    add_rel_pos_to_k,
+    blockify,
+    extract_halo_windows,
+    unblockify,
+)
+from m2trans_tpu_torch.ops.kernels import build
+from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
+
+
+def cftm_branch_plain(x: torch.Tensor, w_qkv: torch.Tensor,
+                      rel_h: torch.Tensor, rel_w: torch.Tensor,
+                      s: torch.Tensor, t: torch.Tensor, *,
+                      x_add: Optional[torch.Tensor] = None, r: float = 0.5,
+                      levels: int = 0, block: int = 8, halo: int = 1
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of K1, rounding where the kernel rounds: z and
+    the DWT output to the input dtype, q/k(+rel)/v to it after f32
+    products, softmax in f32, the probabilities to it, then f32 P v, IWT
+    and residual, one final rounding. In f32 every rounding is a no-op and
+    this is the XLA composition ``_cascade_xla`` of the JAX package.
+
+    x, x_add: (B, H, W, Cb); s, t: (B, Cb) f32; w_qkv: (C, 3C) with
+    C = Cb * 4**levels; rel_h, rel_w: (block + 2*halo, C/2)."""
+    dt = x.dtype
+    z = x.float() * s.float()[:, None, None, :] + t.float()[:, None, None, :]
+    if x_add is not None:
+        z = z + r * x_add.float()
+    z = z.to(dt)
+    zc = z.float()
+    for _ in range(levels):
+        zc = haar_dwt(zc)
+    qkv = zc.to(dt).float() @ w_qkv.float()
+    c = qkv.shape[-1] // 3
+    bsz, hc, wc, _ = qkv.shape
+    win = block + 2 * halo
+    q = blockify((qkv[..., :c] * c ** -0.5).to(dt), block).float()
+    k = add_rel_pos_to_k(extract_halo_windows(qkv[..., c:2 * c], block, halo),
+                         rel_h.float(), rel_w.float(), win).to(dt).float()
+    v = extract_halo_windows(qkv[..., 2 * c:].to(dt), block, halo).float()
+    attn = torch.softmax(torch.einsum("bnmqc,bnmkc->bnmqk", q, k), dim=-1)
+    o = torch.einsum("bnmqk,bnmkc->bnmqc", attn.to(dt).float(), v)
+    o = unblockify(o, hc, wc)
+    for _ in range(levels):
+        o = haar_iwt(o)
+    return (o + z.float()).to(dt)
+
+
+def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):
+    bsz, h, w, cb = x.shape
+    c = cb * 4 ** levels
+    sfull = 2 ** levels
+    dev = x.device
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"cftm_branch kernel: {msg}")
+
+    need(block == 8 and halo == 1, "only block=8, halo=1")
+    need(levels in (0, 1, 2), f"levels must be 0, 1 or 2, got {levels}")
+    need(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    need(h % (block * sfull) == 0 and w % (block * sfull) == 0,
+         f"H, W must be multiples of {block * sfull}, got {h}x{w}")
+    need(c % 16 == 0, f"C = Cb*4^L must be a multiple of 16, got {c}")
+    need(x.stride(3) == 1 and x.stride(1) == w * x.stride(2)
+         and x.stride(0) == h * x.stride(1),
+         "x must be a channel slice of a contiguous NHWC tensor")
+    need(w_qkv.shape == (c, 3 * c) and w_qkv.dtype == torch.bfloat16
+         and w_qkv.is_contiguous(), f"w_qkv must be contiguous bf16 ({c}, {3 * c})")
+    for name, rel in (("rel_h", rel_h), ("rel_w", rel_w)):
+        need(rel.shape == (block + 2 * halo, c // 2) and rel.dtype == torch.float32
+             and rel.is_contiguous(), f"{name} must be contiguous f32 (10, {c // 2})")
+    for name, v in (("s", s), ("t", t)):
+        need(v.shape == (bsz, cb) and v.dtype == torch.float32 and v.is_contiguous(),
+             f"{name} must be contiguous f32 ({bsz}, {cb})")
+    tensors = [x, w_qkv, rel_h, rel_w, s, t]
+    if x_add is not None:
+        need(x_add.shape == x.shape and x_add.dtype == torch.bfloat16
+             and x_add.stride(3) == 1 and x_add.stride(1) == w * x_add.stride(2)
+             and x_add.stride(0) == h * x_add.stride(1),
+             "x_add must be a bf16 channel slice like x")
+        tensors.append(x_add)
+    need(all(v.device == dev for v in tensors), "all tensors on one device")
+
+    lib = build.lib()
+    need(lib.m2t_cftm_branch_smem(c) <= build.MAX_SMEM,
+         f"C={c} needs more shared memory than a block has")
+    out = torch.empty((bsz, h, w, cb), dtype=x.dtype, device=dev)
+    a = x_add if x_add is not None else x
+    code = lib.m2t_cftm_branch(
+        x.data_ptr(), x_add.data_ptr() if x_add is not None else None,
+        s.data_ptr(), t.data_ptr(), w_qkv.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), out.data_ptr(), bsz, h, w, cb, levels,
+        x.stride(0), x.stride(1), x.stride(2),
+        a.stride(0), a.stride(1), a.stride(2), float(r),
+        build.stream_ptr(dev))
+    build.check(code, "cftm_branch")
+    cftm_branch.launches += 1
+    return out
+
+
+def cftm_branch(x: torch.Tensor, w_qkv: torch.Tensor, rel_h: torch.Tensor,
+                rel_w: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
+                x_add: Optional[torch.Tensor] = None, r: float = 0.5,
+                levels: int = 0, block: int = 8, halo: int = 1
+                ) -> torch.Tensor:
+    """K1 (see module docstring). CUDA tensors launch the kernel, which
+    takes bf16 x / x_add (channel slices of a contiguous NHWC tensor),
+    bf16 w_qkv and f32 s, t, rel; CPU tensors run the plain version."""
+    if x.device.type == "cuda":
+        return _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels,
+                       block, halo)
+    if x.device.type == "cpu":
+        return cftm_branch_plain(x, w_qkv, rel_h, rel_w, s, t, x_add=x_add,
+                                 r=r, levels=levels, block=block, halo=halo)
+    raise ValueError(f"cftm_branch: unsupported device {x.device}")
+
+
+cftm_branch.launches = 0  # kernel launches, counted at each launch
