@@ -21,6 +21,10 @@ Numerics (:class:`ComputePolicy`):
     ``use_kernels`` the kernel wrappers run (plain versions on CPU
     tensors); without, the plain versions run on any device.
 
+The forward is differentiable in both modes: in bf16 with kernels the
+backward runs K1b and K2b (32 + 1 launch groups for an 8-block model).
+Serving callers enter ``torch.inference_mode()`` themselves.
+
 The cascade average z_k = (xn_k + o_{k-1}) / 2 enters K1 as its x_add
 input with r = 0.5 and the instance-norm affine halved: in f32,
 x*(s/2) + t/2 + o/2 equals ((x*s + t) + o)/2 exactly (every scaling is a
@@ -60,6 +64,10 @@ class ComputePolicy:
 
 
 def policy_from_config(cfg: Config) -> ComputePolicy:
+    """Numerics policy for ``cfg``, for serving and training alike. The JAX
+    package's ``for_training`` flag turns off a forward-only packed flow
+    that the port does not have; the port's bf16 kernels carry their
+    backward."""
     if cfg.dtype == "bfloat16":
         return ComputePolicy(dtype=torch.bfloat16, use_kernels=cfg.use_pallas)
     return ComputePolicy()
@@ -133,6 +141,17 @@ class M2Trans(nn.Module):
         return m2trans_apply(self, x, self.cfg, policy)
 
 
+def trainable_mask(model: M2Trans):
+    """Parameter name -> trainable; sub_mean/add_mean are frozen
+    (requires_grad False in the reference)."""
+    return {name: p.requires_grad for name, p in model.named_parameters()}
+
+
+def param_count(model: M2Trans, trainable_only: bool = False) -> int:
+    return sum(p.numel() for p in model.parameters()
+               if p.requires_grad or not trainable_only)
+
+
 # ---------------------------------------------------------------------------
 # Seeded init (PyTorch's distributions, as init_m2trans of the JAX package)
 # ---------------------------------------------------------------------------
@@ -194,10 +213,13 @@ def _no_tf32():
 
 def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
     """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns.
-    Kept on the block between calls (not in its state_dict) and rebuilt
+    Where a gradient is wanted it is built through autograd; otherwise it
+    is kept on the block between calls (not in its state_dict) and rebuilt
     when the weight's storage or version changes."""
     w = tb.qkv_conv.weight
-    key = (dtype, w.data_ptr(), w._version)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous()
+    key = (dtype, w.data_ptr(), 0 if w.is_inference() else w._version)
     hit = tb.__dict__.get("_qkv_cache")
     if hit is None or hit[0] != key:
         wt = w.detach().reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous()
@@ -296,7 +318,6 @@ def tail_apply(p, x: torch.Tensor, *, scale: int, policy: ComputePolicy,
     return conv2d(x, p["c1"]["w"], padding="reflect")
 
 
-@torch.no_grad()
 def m2trans_apply(model: M2Trans, x: torch.Tensor, cfg: Config,
                   policy: Optional[ComputePolicy] = None) -> torch.Tensor:
     """Full forward: (B, H, W, colors) in [0, rgb_range] ->

@@ -1,9 +1,14 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-The sources are ``m2trans_tpu_torch/csrc/*.cu``, compiled at first use by
+The sources are ``m2trans_tpu_torch/csrc/*.cu`` (with the ``*.cuh``
+headers they share), compiled at first use, one nvcc process per source,
+all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build dir>/libm2t_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu
+
+then linked by ``nvcc -shared`` into
+``<build dir>/libm2t_kernels_<hash>.so``,
 
 into ``m2trans_tpu_torch/build/``, beside the sources it is built from: in
 a checkout a directory that ``.gitignore``'s ``build/`` rule covers, in an
@@ -32,7 +37,7 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 
@@ -45,10 +50,24 @@ SIGNATURES = {
                         LL, LL, LL, LL, LL, LL,    # x / xadd strides b, h, w
                         F, P],                     # r, stream
     "m2t_cftm_branch_smem": [I],
+    "m2t_cftm_branch_bwd": [P, P, P, P, P, P, P, P,  # x xadd s t w relh relw gout
+                            P, P, P, P, P, P, P,     # dO dp dq dk dv drel_part dw_part
+                            P, P, P,                 # dz dw drel
+                            I, I, I, I, I,           # B H W Cb levels
+                            LL, LL, LL, LL, LL, LL,  # x / xadd strides b, h, w
+                            F, P],                   # r, stream
+    "m2t_cftm_branch_bwd_smem": [I, I],
+    "m2t_reduce_rows": [P, I, LL, P, P],             # part n len out stream
     "m2t_tail_band": [P, P, P, P, P, P,            # y w0 b0 w1 b1 w3
                       P, P, P, P, P,               # lc rc top bot out
                       I, I, I, I, I, F, P],        # B H W nf scale rgb stream
     "m2t_tail_band_smem": [I],
+    "m2t_tail_band_bwd": [P, P, P, P, P, P,        # y w0 b0 w1 b1 w3
+                          P, P, P, P, P,           # lc rc top bot g
+                          P, P, P, P,              # gm part0 part1 part3
+                          P, P, P, P, P, P, P, P,  # dy dw0b0 dw1b1 dw3 dlc drc dtop dbot
+                          I, I, I, I, I, F, P],    # B H W nf scale rgb stream
+    "m2t_tail_band_bwd_smem": [I, I],
 }
 
 _lock = threading.Lock()
@@ -75,6 +94,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"libm2t_kernels_{h.hexdigest()[:16]}.so"
 
 
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources if their library is not built yet; return its
     path."""
@@ -82,16 +119,18 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"tmp_{out.stem}_{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    objs = [tmp / f"{src.stem}.o" for src in sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+              for s, o in zip(sources(), objs)])
+    lib_tmp = tmp / out.name
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
+               *map(str, objs)]])
+    os.replace(lib_tmp, out)
+    shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -11,11 +11,21 @@ slabs and lane packing were TPU choices; on the card they are one kernel,
 ``csrc/cftm_branch.cu``, whose header says what bounds it and how its
 design answers that.
 
+K1b, its VJP (``csrc/cftm_branch_bwd.cu``), replaces the TPU backward
+kernels of ``cftm_branch_fused``'s custom_vjp (halo_attn.py
+``_cascade_bwd_kernel``, ``_cascade_bwd_tile_kernel``; halo_attn_packed.py
+``_packed_bwd_kernel``, ``_packed_bwd_tile_kernel``,
+``_packed_front_bwd_kernel``). :class:`CftmBranchFn` ties the two together
+for autograd: its forward launches K1 and saves only the inputs, its
+backward launches K1b (:func:`cftm_branch_bwd`).
+
     out = B(z) + z,   z = (x*s + t) [+ r*x_add]   (zero outside the frame)
     B   = DWT^L -> qkv -> 8x8-block / 10x10-window halo attention -> IWT^L
 
-:func:`cftm_branch` launches the kernel for CUDA tensors and runs
-:func:`cftm_branch_plain` for CPU tensors only; anything else raises.
+:func:`cftm_branch` launches the kernels for CUDA tensors and runs
+:func:`cftm_branch_plain` (differentiated by autograd) for CPU tensors
+only; anything else raises. :func:`cftm_branch_plain_vjp` is K1b's plain
+version.
 """
 
 from __future__ import annotations
@@ -72,7 +82,8 @@ def cftm_branch_plain(x: torch.Tensor, w_qkv: torch.Tensor,
     return (o + z.float()).to(dt)
 
 
-def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):
+def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
+    """Raise unless the operands are what K1 and K1b take."""
     bsz, h, w, cb = x.shape
     c = cb * 4 ** levels
     sfull = 2 ** levels
@@ -108,9 +119,16 @@ def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):
         tensors.append(x_add)
     need(all(v.device == dev for v in tensors), "all tensors on one device")
 
+
+def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):
+    _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo)
+    bsz, h, w, cb = x.shape
+    c = cb * 4 ** levels
     lib = build.lib()
-    need(lib.m2t_cftm_branch_smem(c) <= build.MAX_SMEM,
-         f"C={c} needs more shared memory than a block has")
+    if lib.m2t_cftm_branch_smem(c) > build.MAX_SMEM:
+        raise ValueError(f"cftm_branch kernel: C={c} needs more shared memory "
+                         "than a block has")
+    dev = x.device
     out = torch.empty((bsz, h, w, cb), dtype=x.dtype, device=dev)
     a = x_add if x_add is not None else x
     code = lib.m2t_cftm_branch(
@@ -125,17 +143,110 @@ def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):
     return out
 
 
+def cftm_branch_plain_vjp(x, w_qkv, rel_h, rel_w, s, t, gout, *,
+                          x_add=None, r: float = 0.5, levels: int = 0,
+                          block: int = 8, halo: int = 1):
+    """Plain version of K1b: the gradients of :func:`cftm_branch_plain` by
+    autograd, ``(dx, dx_add, ds, dt, dw_qkv, drel_h, drel_w)`` (dx_add None
+    without x_add), each in its input's dtype."""
+    ins = [v.detach().requires_grad_(True)
+           for v in (x, w_qkv, rel_h, rel_w, s, t)]
+    add = None if x_add is None else x_add.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = cftm_branch_plain(*ins, x_add=add, r=r, levels=levels,
+                                block=block, halo=halo)
+        grads = torch.autograd.grad(out, ins + ([add] if add is not None else []),
+                                    gout)
+    dx, dw, drh, drw, ds, dt = grads[:6]
+    return dx, (grads[6] if add is not None else None), ds, dt, dw, drh, drw
+
+
+def cftm_branch_bwd(x, w_qkv, rel_h, rel_w, s, t, gout, *, x_add=None,
+                    r: float = 0.5, levels: int = 0):
+    """Launch K1b on CUDA tensors (the operands :func:`_launch` takes, plus
+    the output's cotangent ``gout``); returns ``(dx, dx_add, ds, dt, dw_qkv,
+    drel_h, drel_w)`` in the inputs' dtypes. The kernels give dz and the
+    weight gradients; dx, dx_add, ds, dt are the elementwise and reduction
+    glue that stayed XLA around the TPU kernel."""
+    _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, 8, 1)
+    if gout.shape != x.shape or gout.device != x.device:
+        raise ValueError(f"cftm_branch_bwd: gout {tuple(gout.shape)} on "
+                         f"{gout.device} != x {tuple(x.shape)} on {x.device}")
+    bsz, h, w, cb = x.shape
+    c = cb * 4 ** levels
+    sfull = 2 ** levels
+    lib = build.lib()
+    for which in (0, 1):
+        if lib.m2t_cftm_branch_bwd_smem(c, which) > build.MAX_SMEM:
+            raise ValueError(f"cftm_branch_bwd kernel: C={c} needs more shared "
+                             "memory than a block has")
+    gout = gout.to(torch.bfloat16).contiguous()
+    nwin = bsz * (h // (8 * sfull)) * (w // (8 * sfull))
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    d_o = torch.empty((nwin, 64, c), dtype=torch.bfloat16, device=dev)
+    dp, dq = f32(nwin, 64, 112), f32(nwin, 64, c)
+    dk, dv = f32(nwin, 112, c), f32(nwin, 112, c)
+    drel_part, dw_part = f32(nwin, 10, c), f32(nwin, c, 3 * c)
+    dz, dw, drel = f32(bsz, h, w, cb), f32(c, 3 * c), f32(10, c)
+    a = x_add if x_add is not None else x
+    code = lib.m2t_cftm_branch_bwd(
+        x.data_ptr(), x_add.data_ptr() if x_add is not None else None,
+        s.data_ptr(), t.data_ptr(), w_qkv.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), gout.data_ptr(), d_o.data_ptr(), dp.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel_part.data_ptr(),
+        dw_part.data_ptr(), dz.data_ptr(), dw.data_ptr(), drel.data_ptr(),
+        bsz, h, w, cb, levels, x.stride(0), x.stride(1), x.stride(2),
+        a.stride(0), a.stride(1), a.stride(2), float(r), build.stream_ptr(dev))
+    build.check(code, "cftm_branch_bwd")
+    cftm_branch_bwd.launches += 1
+    dx = (dz * s[:, None, None, :]).to(x.dtype)
+    dx_add = None if x_add is None else (r * dz).to(x_add.dtype)
+    ds = (dz * x.float()).sum(dim=(1, 2))
+    dt = dz.sum(dim=(1, 2))
+    return (dx, dx_add, ds, dt, dw.to(w_qkv.dtype), drel[:, :c // 2].contiguous(),
+            drel[:, c // 2:].contiguous())
+
+
+cftm_branch_bwd.launches = 0  # K1b launch groups (2 kernels + 2 reductions)
+
+
+class CftmBranchFn(torch.autograd.Function):
+    """K1 forward, K1b backward. Saves only the inputs, as the JAX
+    custom_vjp's fwd rule does; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, x_add, s, t, w_qkv, rel_h, rel_w, r, levels, block,
+                halo):
+        ctx.save_for_backward(x, x_add, s, t, w_qkv, rel_h, rel_w)
+        ctx.r, ctx.levels = r, levels
+        return _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block,
+                       halo)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, x_add, s, t, w_qkv, rel_h, rel_w = ctx.saved_tensors
+        dx, dx_add, ds, dt, dw, drh, drw = cftm_branch_bwd(
+            x, w_qkv, rel_h, rel_w, s, t, gout, x_add=x_add, r=ctx.r,
+            levels=ctx.levels)
+        return dx, dx_add, ds, dt, dw, drh, drw, None, None, None, None
+
+
 def cftm_branch(x: torch.Tensor, w_qkv: torch.Tensor, rel_h: torch.Tensor,
                 rel_w: torch.Tensor, s: torch.Tensor, t: torch.Tensor, *,
                 x_add: Optional[torch.Tensor] = None, r: float = 0.5,
                 levels: int = 0, block: int = 8, halo: int = 1
                 ) -> torch.Tensor:
-    """K1 (see module docstring). CUDA tensors launch the kernel, which
-    takes bf16 x / x_add (channel slices of a contiguous NHWC tensor),
-    bf16 w_qkv and f32 s, t, rel; CPU tensors run the plain version."""
+    """K1 (see module docstring), differentiable. CUDA tensors launch the
+    kernel (K1b in the backward), which takes bf16 x / x_add (channel
+    slices of a contiguous NHWC tensor), bf16 w_qkv and f32 s, t, rel; CPU
+    tensors run the plain version."""
     if x.device.type == "cuda":
-        return _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels,
-                       block, halo)
+        return CftmBranchFn.apply(x, x_add, s, t, w_qkv, rel_h, rel_w, r,
+                                  levels, block, halo)
     if x.device.type == "cpu":
         return cftm_branch_plain(x, w_qkv, rel_h, rel_w, s, t, x_add=x_add,
                                  r=r, levels=levels, block=block, halo=halo)

@@ -10,8 +10,17 @@ how its design answers that. The weight prep (``stage_weights``),
 the 1-px reflect-ring slices (``phase_edges``) and the final depth-to-space
 stay plain torch, as they stayed XLA around the TPU kernel.
 
-:func:`tail_band_fused` launches the kernel for CUDA tensors and runs
-:func:`tail_band_plain` for CPU tensors only; anything else raises.
+K2b, its VJP (``csrc/tail_band_bwd.cu``), replaces the four TPU kernels of
+``tail_band_bwd_fused`` (``_bwd_recompute_kernel``, ``_bwd_dk_kernel``,
+``_bwd_dph_kernel``, ``_bwd_stage_kernel``). :class:`TailBandFn` ties the
+two together for autograd: K2 forward, K2b backward, which returns the
+gradients of K2's ten operands; autograd carries them on through the plain
+``stage_weights``, ``last_conv_weight`` and ``phase_edges`` (the JAX
+backward's ``wvjp``/``evjp``).
+
+:func:`tail_band_fused` launches the kernels for CUDA tensors and runs
+:func:`tail_band_plain` (differentiated by autograd) for CPU tensors only;
+anything else raises. :func:`tail_band_plain_vjp` is K2b's plain version.
 """
 
 from __future__ import annotations
@@ -58,10 +67,10 @@ def tail_band_plain(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
     return out.clamp(0.0, rgb_range).to(dt).permute(0, 2, 3, 1).contiguous()
 
 
-def _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale, rgb_range):
+def _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale):
+    """Raise unless the operands are what K2 and K2b take."""
     bsz, h, w, nf = y.shape
-    P = scale * scale
-    cp = P * nf
+    cp = scale * scale * nf
     cp0 = 4 * nf if scale == 4 else cp
 
     def need(cond, msg):
@@ -85,10 +94,17 @@ def _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale, rgb_range):
              and v.device == y.device,
              f"{name} must be contiguous {dt} {shp} on {y.device}, got "
              f"{v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale, rgb_range):
+    _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale)
+    bsz, h, w, nf = y.shape
     lib = build.lib()
-    need(lib.m2t_tail_band_smem(nf) <= build.MAX_SMEM,
-         f"n_feats={nf} needs more shared memory than a block has")
-    out = torch.empty((bsz, h, w, P * 3), dtype=y.dtype, device=y.device)
+    if lib.m2t_tail_band_smem(nf) > build.MAX_SMEM:
+        raise ValueError(f"tail_band kernel: n_feats={nf} needs more shared "
+                         "memory than a block has")
+    out = torch.empty((bsz, h, w, scale * scale * 3), dtype=y.dtype,
+                      device=y.device)
     code = lib.m2t_tail_band(
         y.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w3.data_ptr(), lc.data_ptr(), rc.data_ptr(),
@@ -99,14 +115,104 @@ def _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale, rgb_range):
     return out
 
 
-def tail_band_fused(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
-                    rgb_range: float) -> torch.Tensor:
-    """K2 on prepared operands (see :func:`tail_band_plain` for shapes).
-    CUDA tensors launch the kernel (bf16 y and weights, f32 edges); CPU
-    tensors run the plain version."""
-    if y.device.type == "cuda":
+def tail_band_plain_vjp(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *,
+                        scale: int, rgb_range: float):
+    """Plain version of K2b: the gradients of :func:`tail_band_plain` with
+    respect to its ten operands by autograd, for the cotangent ``g`` of
+    its (B, H, W, P*3) output."""
+    ins = [v.detach().requires_grad_(True)
+           for v in (y, w0, b0, w1, b1, w3, lc, rc, top, bot)]
+    with torch.enable_grad():
+        out = tail_band_plain(*ins, scale=scale, rgb_range=rgb_range)
+        grads = torch.autograd.grad(out, ins, g, allow_unused=True)
+    # w1/b1 repeat w0/b0 and are not read at x2/x3
+    return tuple(torch.zeros_like(v) if d is None else d
+                 for v, d in zip(ins, grads))
+
+
+def tail_band_bwd(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *, scale: int,
+                  rgb_range: float):
+    """Launch K2b on CUDA tensors (K2's operands and the cotangent ``g``
+    of its output); returns the gradients of the ten operands in their
+    dtypes."""
+    _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale)
+    bsz, h, w, nf = y.shape
+    P = scale * scale
+    cp, cp0 = P * nf, (4 * nf if scale == 4 else P * nf)
+    if nf > 64:
+        raise ValueError(f"tail_band_bwd kernel: n_feats must be <= 64, got {nf}")
+    if tuple(g.shape) != (bsz, h, w, P * 3) or g.device != y.device:
+        raise ValueError(f"tail_band_bwd: g {tuple(g.shape)} on {g.device} != "
+                         f"{(bsz, h, w, P * 3)} on {y.device}")
+    g = g.to(y.dtype).contiguous()
+    lib = build.lib()
+    if lib.m2t_tail_band_bwd_smem(nf, 1) > build.MAX_SMEM:
+        raise ValueError(f"tail_band_bwd kernel: n_feats={nf} needs more "
+                         "shared memory than a block has")
+    dev = y.device
+    tiles = bsz * (-(-h // 4)) * (-(-w // 16))
+
+    def f32(*shape, zero=False):
+        make = torch.zeros if zero else torch.empty
+        return make(shape, dtype=torch.float32, device=dev)
+
+    gm, dy = f32(bsz, h, w, P * 3), f32(bsz, h, w, nf)
+    part0, part3 = f32(tiles, nf * cp0 + cp0), f32(tiles, 27 * nf)
+    part1 = f32(tiles * 4, nf * 4 * nf + 4 * nf) if scale == 4 else f32(1)
+    dw0b0, dw1b1 = f32(nf * cp0 + cp0), f32(nf * 4 * nf + 4 * nf)
+    dw3 = f32(3, 3, nf, 3)
+    dlc, drc = f32(bsz, h + 2, cp, zero=True), f32(bsz, h + 2, cp, zero=True)
+    dtop, dbot = f32(bsz, w + 2, cp), f32(bsz, w + 2, cp)
+    code = lib.m2t_tail_band_bwd(
+        y.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w3.data_ptr(), lc.data_ptr(), rc.data_ptr(),
+        top.data_ptr(), bot.data_ptr(), g.data_ptr(), gm.data_ptr(),
+        part0.data_ptr(), part1.data_ptr(), part3.data_ptr(), dy.data_ptr(),
+        dw0b0.data_ptr(), dw1b1.data_ptr(), dw3.data_ptr(), dlc.data_ptr(),
+        drc.data_ptr(), dtop.data_ptr(), dbot.data_ptr(), bsz, h, w, nf,
+        scale, float(rgb_range), build.stream_ptr(dev))
+    build.check(code, "tail_band_bwd")
+    tail_band_bwd.launches += 1
+    dw0, db0 = dw0b0[:nf * cp0].view(nf, cp0), dw0b0[nf * cp0:]
+    if scale == 4:
+        dw1, db1 = dw1b1[:nf * 4 * nf].view(nf, 4 * nf), dw1b1[nf * 4 * nf:]
+    else:  # w1/b1 repeat w0/b0 and are not read at x2/x3
+        dw1, db1 = torch.zeros_like(w1), torch.zeros_like(b1)
+    grads = (dy, dw0, db0, dw1, db1, dw3)
+    ops = (y, w0, b0, w1, b1, w3)
+    return (*(gr.to(op.dtype) for gr, op in zip(grads, ops)), dlc, drc, dtop,
+            dbot)
+
+
+tail_band_bwd.launches = 0  # K2b launch groups (2 passes + reductions)
+
+
+class TailBandFn(torch.autograd.Function):
+    """K2 forward, K2b backward; saves only the operands."""
+
+    @staticmethod
+    def forward(ctx, y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale,
+                rgb_range):
+        ctx.save_for_backward(y, w0, b0, w1, b1, w3, lc, rc, top, bot)
+        ctx.scale, ctx.rgb_range = scale, rgb_range
         return _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale,
                        rgb_range)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = tail_band_bwd(*ctx.saved_tensors, g, scale=ctx.scale,
+                              rgb_range=ctx.rgb_range)
+        return (*grads, None, None)
+
+
+def tail_band_fused(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
+                    rgb_range: float) -> torch.Tensor:
+    """K2 on prepared operands (see :func:`tail_band_plain` for shapes),
+    differentiable. CUDA tensors launch the kernel (bf16 y and weights, f32
+    edges; K2b in the backward); CPU tensors run the plain version."""
+    if y.device.type == "cuda":
+        return TailBandFn.apply(y, w0, b0, w1, b1, w3, lc, rc, top, bot,
+                                scale, rgb_range)
     if y.device.type == "cpu":
         return tail_band_plain(y, w0, b0, w1, b1, w3, lc, rc, top, bot,
                                scale=scale, rgb_range=rgb_range)

@@ -56,6 +56,7 @@ class StreamingSR:
         self.output_u8 = output_u8
         self.latencies_s = []
 
+    @torch.inference_mode()
     def _fwd(self, frames: np.ndarray) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(frames, np.float32)).to(self.device)
         y = m2trans_apply_microbatched(self.model, x, self.cfg, self.policy)

@@ -1,19 +1,29 @@
-"""Checkpoint loading of the port; counterpart of
-m2trans_tpu/train/checkpoint.py ``load_params_any`` for reference ``.pt``
-files. Orbax directories (the JAX package's own format) are not read here:
-orbax is a JAX library.
+"""Checkpoints of the port; counterpart of m2trans_tpu/train/checkpoint.py.
+
+The training state is saved in the reference's own format
+(train.py:342-349, SURVEY.md:318-319): one ``torch.save`` dict
+``{epoch, model_state_dict, optimizer_state_dict, scheduler_state_dict,
+stat_dict}`` per epoch at ``<models>/model_x{scale}_{epoch}.pt``, with the
+reference's state-dict keys, so both packages' ``load_params_any`` read
+it. ``--resume`` restores the newest epoch, as the reference's
+glob-by-epoch logic (train.py:92-108). Orbax directories, the JAX
+package's own format, are not read here: orbax is a JAX library.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import M2Trans
-from m2trans_tpu_torch.train.convert import load_reference_state_dict
+from m2trans_tpu_torch.train.convert import (
+    load_reference_state_dict,
+    reference_state_dict,
+)
 
 
 def load_params_any(path: Optional[str], cfg: Config,
@@ -32,3 +42,42 @@ def load_params_any(path: Optional[str], cfg: Config,
         model = M2Trans(cfg)
     model = model.to_empty(device=device or "cpu")
     return load_reference_state_dict(model, sd)
+
+
+def checkpoint_path(models_path: str, scale: int, epoch: int) -> str:
+    return os.path.join(models_path, f"model_x{scale}_{epoch}.pt")
+
+
+def save_state(models_path: str, epoch: int, scale: int, model: M2Trans,
+               optimizer: torch.optim.Optimizer,
+               scheduler_state: Dict[str, Any], stat_dict: Dict) -> str:
+    """Write the epoch's training state; returns its path."""
+    path = checkpoint_path(models_path, scale, epoch)
+    torch.save({"epoch": epoch,
+                "model_state_dict": reference_state_dict(model),
+                "optimizer_state_dict": optimizer.state_dict(),
+                "scheduler_state_dict": scheduler_state,
+                "stat_dict": stat_dict}, path)
+    return path
+
+
+def latest_epoch(models_path: str, scale: int) -> Optional[int]:
+    pat = re.compile(rf"model_x{scale}_(\d+)\.pt$")
+    epochs = [int(m.group(1)) for f in os.listdir(models_path)
+              if (m := pat.match(f))] if os.path.isdir(models_path) else []
+    return max(epochs) if epochs else None
+
+
+def restore_latest(models_path: str, scale: int, model: M2Trans,
+                   optimizer: torch.optim.Optimizer
+                   ) -> Optional[Tuple[int, Dict]]:
+    """Load the newest epoch's state into ``model`` and ``optimizer``;
+    returns (epoch, stat_dict), or None where there is no checkpoint."""
+    epoch = latest_epoch(models_path, scale)
+    if epoch is None:
+        return None
+    ckpt = torch.load(checkpoint_path(models_path, scale, epoch),
+                      map_location="cpu", weights_only=True)
+    load_reference_state_dict(model, ckpt["model_state_dict"])
+    optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    return ckpt["epoch"], ckpt["stat_dict"]

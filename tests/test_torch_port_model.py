@@ -48,7 +48,7 @@ def test_f32_matches_jax(scale, hw):
     model = module_from_params(params, cfg)
     x = np.random.default_rng(scale).uniform(0, 1, (2, *hw, 3)).astype(np.float32)
     want = np.asarray(jax_apply(params, jnp.asarray(x), cfg, policy=JaxPolicy()))
-    got = m2trans_apply(model, torch.from_numpy(x), cfg, ComputePolicy()).numpy()
+    got = m2trans_apply(model, torch.from_numpy(x), cfg, ComputePolicy()).detach().numpy()
     assert got.shape == want.shape == (2, hw[0] * scale, hw[1] * scale, 3)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
@@ -60,7 +60,7 @@ def test_f32_matches_jax_flagship_width():
     model = module_from_params(params, cfg)
     x = np.random.default_rng(7).uniform(0, 1, (1, 32, 32, 3)).astype(np.float32)
     want = np.asarray(jax_apply(params, jnp.asarray(x), cfg, policy=JaxPolicy()))
-    got = m2trans_apply(model, torch.from_numpy(x), cfg, ComputePolicy()).numpy()
+    got = m2trans_apply(model, torch.from_numpy(x), cfg, ComputePolicy()).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -72,7 +72,7 @@ def test_bf16_plain_matches_pallas_golden():
     model = module_from_params(params, cfg)
     x = np.array(jax.random.uniform(jax.random.PRNGKey(43), (2, 32, 32, 3)))
     pol = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
-    got = m2trans_apply(model, torch.from_numpy(x), cfg, pol).float().numpy()
+    got = m2trans_apply(model, torch.from_numpy(x), cfg, pol).detach().float().numpy()
     want = np.load(os.path.join(GOLDEN, "m2trans_x4_bf16_pallas.npy"))
     np.testing.assert_allclose(got, want, atol=2e-2)
     assert float(np.abs(got - want).mean()) < 2e-3
