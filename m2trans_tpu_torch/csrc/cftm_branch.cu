@@ -13,6 +13,11 @@
 //         each 8x8 query block (padded keys are 0 + rel, values 0)
 //   out = bf16(IWT^L(o) + z)
 //
+// K1n, the bare wavelet branch (halo_attention_qkv_fused of halo_attn.py:
+// _kernel, _tile_kernel, _multiband_kernel), is the same kernel entered
+// through m2t_halo_attn_qkv with no affine, no cascade add and no residual:
+//   out = bf16(IWT^L(o)),  z = x.
+//
 // At L=2 the coarse channel index is sb2*4Cb + sb1*Cb + c, the order of two
 // stacked haar_dwt calls.
 //
@@ -98,7 +103,7 @@ cftm_branch_kernel(BranchArgs a) {
   }
   __syncthreads();
 
-  // 6. IWT^L + residual z, bf16 out
+  // 6. IWT^L + residual z (none for the bare branch), bf16 out
   for (int item = tid; item < NQ * Cb; item += THREADS) {
     const int p = item / Cb, c = item % Cb;
     const int cr = bi * BLOCK + p / BLOCK, cc = bj * BLOCK + p % BLOCK;
@@ -106,12 +111,14 @@ cftm_branch_kernel(BranchArgs a) {
     for (int g = 0; g < G; ++g) o[g] = O[p * LO + g * Cb + c];
     float px[S][S];
     iwt<L>(o, px);
-    const float sv = a.s[b * Cb + c], tv = a.t[b * Cb + c];
+    float sv, tv;
+    affine_coef(a, b, c, sv, tv);
     for (int dy = 0; dy < S; ++dy)
       for (int dx = 0; dx < S; ++dx) {
         const int y = cr * S + dy, xx = cc * S + dx;
+        const float res = a.s ? affine_z(a, b, y, xx, c, sv, tv) : 0.f;
         a.out[(((size_t)b * a.H + y) * a.W + xx) * Cb + c] =
-            __float2bfloat16(px[dy][dx] + affine_z(a, b, y, xx, c, sv, tv));
+            __float2bfloat16(px[dy][dx] + res);
       }
   }
 }
@@ -161,4 +168,14 @@ extern "C" int m2t_cftm_branch(const void* x, const void* xadd, const void* s,
     case 2: return (int)launch<2>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K1n: the branch without affine, cascade add and residual (s = t = null).
+extern "C" int m2t_halo_attn_qkv(const void* x, const void* w, const void* relh,
+                                 const void* relw, void* out, int B, int H,
+                                 int W, int Cb, int levels, long long x_sb,
+                                 long long x_sh, long long x_sw, void* stream) {
+  return m2t_cftm_branch(x, nullptr, nullptr, nullptr, w, relh, relw, out, B,
+                         H, W, Cb, levels, x_sb, x_sh, x_sw, x_sb, x_sh, x_sw,
+                         0.f, stream);
 }

@@ -152,7 +152,7 @@ __device__ __forceinline__ void iwt(const float* o, float (*p)[1 << L]) {
 struct BranchArgs {
   const bf16* x;
   const bf16* xadd;  // may be null
-  const float* s;
+  const float* s;    // null (with t) for the bare branch: no affine
   const float* t;
   const bf16* w;     // (C, 3C), q|k|v columns
   const float* relh; // (10, C/2)
@@ -162,6 +162,13 @@ struct BranchArgs {
   long long x_sb, x_sh, x_sw, a_sb, a_sh, a_sw;
   float r;
 };
+
+// The affine of image b, channel c; the identity where there is none.
+__device__ __forceinline__ void affine_coef(const BranchArgs& a, int b, int c,
+                                            float& sv, float& tv) {
+  sv = a.s ? a.s[b * a.Cb + c] : 1.f;
+  tv = a.s ? a.t[b * a.Cb + c] : 0.f;
+}
 
 // bf16(x*s + t [+ r*x_add]) at full-res pixel (y, xx), channel c
 __device__ __forceinline__ float affine_z(const BranchArgs& a, int b, int y,
@@ -193,7 +200,8 @@ __device__ inline void load_zc(const BranchArgs& a, int b, int bi, int bj,
       const int cr = bi * BLOCK - 1 + wr, cc = bj * BLOCK - 1 + wc;
       inside = cr >= 0 && cr < Hc && cc >= 0 && cc < Wc;
       if (inside) {
-        const float sv = a.s[b * Cb + c], tv = a.t[b * Cb + c];
+        float sv, tv;
+        affine_coef(a, b, c, sv, tv);
         float p[S][S];
         for (int dy = 0; dy < S; ++dy)
           for (int dx = 0; dx < S; ++dx)

@@ -52,6 +52,7 @@ def main(argv=None) -> None:
 
     from m2trans_tpu_torch.config import load_config
     from m2trans_tpu_torch.models.m2trans import policy_from_config
+    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
     from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
     from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
     from m2trans_tpu_torch.parallel.streaming import StreamingSR
@@ -81,7 +82,9 @@ def main(argv=None) -> None:
     if args.output:
         os.makedirs(args.output, exist_ok=True)
 
-    launches0 = (cftm_branch.launches, tail_band_fused.launches)
+    counted = {"cftm_branch": cftm_branch, "ff_conv": ff_conv,
+               "tail_band": tail_band_fused}
+    launches0 = {k: f.launches for k, f in counted.items()}
     t0 = time.perf_counter()
     n_px = 0
     for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
@@ -100,9 +103,8 @@ def main(argv=None) -> None:
            for k, v in runner.latency_percentiles().items()},
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
-        "kernel_launches": {
-            "cftm_branch": cftm_branch.launches - launches0[0],
-            "tail_band": tail_band_fused.launches - launches0[1]},
+        "kernel_launches": {k: f.launches - launches0[k]
+                            for k, f in counted.items()},
     }
     print(json.dumps(report))
 

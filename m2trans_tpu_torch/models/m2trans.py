@@ -15,14 +15,17 @@ Numerics (:class:`ComputePolicy`):
     conv -> shuffle tail, TF32 off for matmul and cuDNN (the analogue of
     ``Precision.HIGHEST``);
   * bf16: the structure of the JAX ``_cftm_apply_fused`` — IN statistics,
-    head conv, ff conv, residuals and the depth-to-space are plain torch;
-    each CFTM runs its 4 branches through K1 at levels 0/1/2/2 and the tail
-    through K2 (32 + 1 launches for an 8-block forward). With
+    head conv, the global residual and the depth-to-space are plain torch;
+    each CFTM runs its 4 branches through K1 at levels 0/1/2/2 and its
+    feed-forward conv, bias and module residual through K3, and the tail
+    runs through K2 (32 + 8 + 1 launches for an 8-block forward). With
     ``use_kernels`` the kernel wrappers run (plain versions on CPU
     tensors); without, the plain versions run on any device.
 
 The forward is differentiable in both modes: in bf16 with kernels the
-backward runs K1b and K2b (32 + 1 launch groups for an 8-block model).
+backward runs K1b and K2b (32 + 1 launch groups for an 8-block model) and
+K3's plain VJP. The standalone ``tblock_apply`` and ``make_branch_fn`` take
+K1n, the bare wavelet branch, in bf16 with kernels.
 Serving callers enter ``torch.inference_mode()`` themselves.
 
 The cascade average z_k = (xn_k + o_{k-1}) / 2 enters K1 as its x_add
@@ -45,7 +48,16 @@ import torch.nn as nn
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.ops.conv import conv2d, gelu_exact
 from m2trans_tpu_torch.ops.halo_attention import halo_attention
-from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch, cftm_branch_plain
+from m2trans_tpu_torch.ops.kernels.ff_conv import (
+    ff_conv,
+    ff_conv_plain,
+    ff_weight_hwio,
+)
+from m2trans_tpu_torch.ops.kernels.halo_attn import (
+    cftm_branch,
+    cftm_branch_plain,
+    halo_attention_qkv,
+)
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_apply
 from m2trans_tpu_torch.ops.norm import in_stats, instance_norm
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
@@ -56,8 +68,8 @@ from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
 @dataclasses.dataclass(frozen=True)
 class ComputePolicy:
     """Numerics policy threaded through the forward pass. ``use_kernels``
-    is the config's ``use_pallas``: in bf16 it routes K1/K2 through their
-    kernel wrappers."""
+    is the config's ``use_pallas``: in bf16 it routes K1/K2/K3 (and K1n)
+    through their kernel wrappers."""
 
     dtype: torch.dtype = torch.float32
     use_kernels: bool = False
@@ -211,20 +223,34 @@ def _no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
-    """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns.
-    Where a gradient is wanted it is built through autograd; otherwise it
-    is kept on the block between calls (not in its state_dict) and rebuilt
-    when the weight's storage or version changes."""
-    w = tb.qkv_conv.weight
-    if torch.is_grad_enabled() and w.requires_grad:
-        return w.reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous()
-    key = (dtype, w.data_ptr(), 0 if w.is_inference() else w._version)
-    hit = tb.__dict__.get("_qkv_cache")
+def _prepared(mod: nn.Module, slot: str, dtype, params, make):
+    """``make(*params)``, a kernel operand laid out from a module's
+    parameters. Where a gradient is wanted it is built through autograd;
+    otherwise it is kept on the module between calls (not in its
+    state_dict) and rebuilt when a parameter's storage or version changes."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return make(*params)
+    key = (dtype, *((p.data_ptr(), 0 if p.is_inference() else p._version)
+                    for p in params))
+    hit = mod.__dict__.get(slot)
     if hit is None or hit[0] != key:
-        wt = w.detach().reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous()
-        hit = tb.__dict__["_qkv_cache"] = (key, wt)
+        hit = mod.__dict__[slot] = (key, make(*(p.detach() for p in params)))
     return hit[1]
+
+
+def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
+    """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns."""
+    return _prepared(
+        tb, "_qkv_cache", dtype, (tb.qkv_conv.weight,),
+        lambda w: w.reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous())
+
+
+def _ff_wb(blk: CFTM, dtype):
+    """The feed-forward conv's (3, 3, C_in, C_out) weight and its bias in
+    ``dtype``, K3's operands."""
+    ff = blk.feed_forward[0]
+    return _prepared(blk, "_ff_cache", dtype, (ff.weight, ff.bias),
+                     lambda w, b: (ff_weight_hwio(w, dtype), b.to(dtype)))
 
 
 def _rel(tb: TBlock):
@@ -233,13 +259,53 @@ def _rel(tb: TBlock):
             tb.rel_w.reshape(win, c2).float().contiguous())
 
 
+def _fused(policy: ComputePolicy) -> bool:
+    return policy.use_kernels and policy.dtype == torch.bfloat16
+
+
 def tblock_apply(tb: TBlock, x: torch.Tensor, *, block: int = 8,
-                 halo: int = 1) -> torch.Tensor:
-    """Plain halo-attention block (f32 path): qkv 1x1 conv, halo attention."""
-    qkv = conv2d(x, tb.qkv_conv.weight, padding="valid")
-    q, k, v = torch.chunk(qkv, 3, dim=-1)
+                 halo: int = 1, policy: ComputePolicy = ComputePolicy()
+                 ) -> torch.Tensor:
+    """Halo-attention block: qkv 1x1 conv, halo attention. H and W are
+    reflect-padded to a multiple of ``block`` and the result cropped back
+    (never triggered inside the model, whose frames are 32-aligned at
+    every pyramid level). In bf16 with kernels it is one K1n launch."""
+    h, w = x.shape[1], x.shape[2]
+    x = pad_to_multiple(x, block)
     rel_h, rel_w = _rel(tb)
-    return halo_attention(q, k, v, rel_h, rel_w, block=block, halo=halo)
+    if _fused(policy):
+        out = halo_attention_qkv(x.to(policy.dtype), _qkv_w(tb, policy.dtype),
+                                 rel_h, rel_w, block=block, halo=halo)
+    else:
+        qkv = conv2d(x, tb.qkv_conv.weight, padding="valid", dtype=policy.dtype)
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+        out = halo_attention(q, k, v, rel_h, rel_w, block=block, halo=halo)
+    return out[:, :h, :w]
+
+
+def make_branch_fn(blk: CFTM, policy: ComputePolicy, *, block: int = 8,
+                   halo: int = 1):
+    """Returns branch(name, z, levels) computing one CFTM wavelet branch,
+    DWT^levels -> halo attention -> IWT^levels: one K1n launch in bf16 with
+    kernels, plain torch otherwise. Shared by the f32 forward and (in the
+    JAX package) the spatially sharded forward."""
+
+    def branch(name, z, levels):
+        tb = getattr(blk, name)
+        if _fused(policy):
+            rel_h, rel_w = _rel(tb)
+            return halo_attention_qkv(z.to(policy.dtype), _qkv_w(tb, policy.dtype),
+                                      rel_h, rel_w, levels=levels, block=block,
+                                      halo=halo)
+        out = z
+        for _ in range(levels):
+            out = haar_dwt(out)
+        out = tblock_apply(tb, out, block=block, halo=halo, policy=policy)
+        for _ in range(levels):
+            out = haar_iwt(out)
+        return out
+
+    return branch
 
 
 _BRANCHES = (("attn1", 0), ("attn2", 1), ("attn3", 2), ("attn4", 2))
@@ -250,18 +316,13 @@ def cftm_apply(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
     """Coarse-to-Fine Transformer Module (reference CFTM.forward)."""
     if policy.dtype == torch.bfloat16:
         return _cftm_apply_fused(blk, x, policy=policy, block=block, halo=halo)
+    branch = make_branch_fn(blk, policy, block=block, halo=halo)
     xs = torch.chunk(instance_norm(x), 4, dim=-1)
     outs, prev = [], None
     for (name, levels), xk in zip(_BRANCHES, xs):
         if prev is not None:
             xk = (xk + prev) * 0.5
-        z = xk
-        for _ in range(levels):
-            z = haar_dwt(z)
-        z = tblock_apply(getattr(blk, name), z, block=block, halo=halo)
-        for _ in range(levels):
-            z = haar_iwt(z)
-        prev = z + xk
+        prev = branch(name, xk, levels) + xk
         outs.append(prev)
     ff = blk.feed_forward[0]
     return conv2d(torch.cat(outs, dim=-1), ff.weight, ff.bias,
@@ -272,8 +333,9 @@ def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
                       block: int, halo: int) -> torch.Tensor:
     """bf16 CFTM: IN statistics in plain torch, each branch one K1 call
     (affine, cascade add, DWT, qkv, attention, IWT, residual), then the ff
-    conv and the module residual in plain torch."""
+    conv, its bias and the module residual as one K3 call."""
     branch = cftm_branch if policy.use_kernels else cftm_branch_plain
+    ff = ff_conv if policy.use_kernels else ff_conv_plain
     x = x.to(policy.dtype)
     inv, tfull = in_stats(x)
     cb = x.shape[-1] // 4
@@ -289,9 +351,7 @@ def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
                       rel_h, rel_w, sk, tk, x_add=prev, r=0.5, levels=levels,
                       block=block, halo=halo)
         outs.append(prev)
-    ff = blk.feed_forward[0]
-    return conv2d(torch.cat(outs, dim=-1), ff.weight, ff.bias, padding="zeros",
-                  dtype=policy.dtype) + x
+    return ff(torch.cat(outs, dim=-1), x, *_ff_wb(blk, policy.dtype))
 
 
 def _conv_ps_gelu(x, w, b, r):

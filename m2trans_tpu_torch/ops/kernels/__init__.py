@@ -1,2 +1,5 @@
-"""Hand-written CUDA kernels of the port: K1 (fused CFTM branch) and K2
-(fused phase-plane tail), their plain versions, and the nvcc/ctypes build."""
+"""Hand-written CUDA kernels of the port: K1 / K1b (fused CFTM branch and
+its VJP) and K1n (the bare branch) in ``halo_attn``, K2 / K2b (fused
+phase-plane tail and its VJP) in ``tail_band``, K3 (fused feed-forward conv)
+in ``ff_conv``, K4 (lane relayouts) in ``relayout``, each with its plain
+version, and the nvcc/ctypes build."""

@@ -50,6 +50,9 @@ SIGNATURES = {
                         LL, LL, LL, LL, LL, LL,    # x / xadd strides b, h, w
                         F, P],                     # r, stream
     "m2t_cftm_branch_smem": [I],
+    "m2t_halo_attn_qkv": [P, P, P, P, P,          # x w relh relw out
+                          I, I, I, I, I,           # B H W Cb levels
+                          LL, LL, LL, P],          # x strides b, h, w; stream
     "m2t_cftm_branch_bwd": [P, P, P, P, P, P, P, P,  # x xadd s t w relh relw gout
                             P, P, P, P, P, P, P,     # dO dp dq dk dv drel_part dw_part
                             P, P, P,                 # dz dw drel
@@ -68,6 +71,10 @@ SIGNATURES = {
                           P, P, P, P, P, P, P, P,  # dy dw0b0 dw1b1 dw3 dlc drc dtop dbot
                           I, I, I, I, I, F, P],    # B H W nf scale rgb stream
     "m2t_tail_band_bwd_smem": [I, I],
+    "m2t_ff_conv": [P, P, P, P, P,                 # oc x w b out
+                    I, I, I, I, P],                # B H W C stream
+    "m2t_ff_conv_smem": [I],
+    "m2t_relayout": [P, P, I, I, I, I, I, I, I, P],  # src dst B H W g nb cb pack stream
 }
 
 _lock = threading.Lock()

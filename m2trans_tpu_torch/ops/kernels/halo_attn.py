@@ -22,6 +22,14 @@ backward launches K1b (:func:`cftm_branch_bwd`).
     out = B(z) + z,   z = (x*s + t) [+ r*x_add]   (zero outside the frame)
     B   = DWT^L -> qkv -> 8x8-block / 10x10-window halo attention -> IWT^L
 
+K1n, the bare wavelet branch (``halo_attention_qkv_fused`` of halo_attn.py:
+``_kernel`` via ``_halo_attention_banded_impl``, ``_tile_kernel`` via
+``_halo_attention_tiled_impl``, ``_multiband_kernel`` via
+``_halo_attention_whole_impl``), is B alone, no affine and no residual: a
+second entry of ``csrc/cftm_branch.cu`` (:func:`halo_attention_qkv`). Its
+TPU custom_vjp differentiates the XLA composition, so
+:class:`HaloAttnQkvFn`'s backward is the plain version's VJP.
+
 :func:`cftm_branch` launches the kernels for CUDA tensors and runs
 :func:`cftm_branch_plain` (differentiated by autograd) for CPU tensors
 only; anything else raises. :func:`cftm_branch_plain_vjp` is K1b's plain
@@ -44,6 +52,31 @@ from m2trans_tpu_torch.ops.kernels import build
 from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
 
 
+def _branch_plain_f32(z: torch.Tensor, w_qkv, rel_h, rel_w, levels: int,
+                      block: int, halo: int) -> torch.Tensor:
+    """``IWT^L(attn(qkv(DWT^L(z))))`` in f32, rounding to ``z``'s dtype
+    where K1 rounds: the DWT output, q/k(+rel)/v after f32 products, the
+    probabilities after an f32 softmax; P v and the IWT stay f32."""
+    dt = z.dtype
+    zc = z.float()
+    for _ in range(levels):
+        zc = haar_dwt(zc)
+    qkv = zc.to(dt).float() @ w_qkv.float()
+    c = qkv.shape[-1] // 3
+    bsz, hc, wc, _ = qkv.shape
+    win = block + 2 * halo
+    q = blockify((qkv[..., :c] * c ** -0.5).to(dt), block).float()
+    k = add_rel_pos_to_k(extract_halo_windows(qkv[..., c:2 * c], block, halo),
+                         rel_h.float(), rel_w.float(), win).to(dt).float()
+    v = extract_halo_windows(qkv[..., 2 * c:].to(dt), block, halo).float()
+    attn = torch.softmax(torch.einsum("bnmqc,bnmkc->bnmqk", q, k), dim=-1)
+    o = torch.einsum("bnmqk,bnmkc->bnmqc", attn.to(dt).float(), v)
+    o = unblockify(o, hc, wc)
+    for _ in range(levels):
+        o = haar_iwt(o)
+    return o
+
+
 def cftm_branch_plain(x: torch.Tensor, w_qkv: torch.Tensor,
                       rel_h: torch.Tensor, rel_w: torch.Tensor,
                       s: torch.Tensor, t: torch.Tensor, *,
@@ -63,27 +96,25 @@ def cftm_branch_plain(x: torch.Tensor, w_qkv: torch.Tensor,
     if x_add is not None:
         z = z + r * x_add.float()
     z = z.to(dt)
-    zc = z.float()
-    for _ in range(levels):
-        zc = haar_dwt(zc)
-    qkv = zc.to(dt).float() @ w_qkv.float()
-    c = qkv.shape[-1] // 3
-    bsz, hc, wc, _ = qkv.shape
-    win = block + 2 * halo
-    q = blockify((qkv[..., :c] * c ** -0.5).to(dt), block).float()
-    k = add_rel_pos_to_k(extract_halo_windows(qkv[..., c:2 * c], block, halo),
-                         rel_h.float(), rel_w.float(), win).to(dt).float()
-    v = extract_halo_windows(qkv[..., 2 * c:].to(dt), block, halo).float()
-    attn = torch.softmax(torch.einsum("bnmqc,bnmkc->bnmqk", q, k), dim=-1)
-    o = torch.einsum("bnmqk,bnmkc->bnmqc", attn.to(dt).float(), v)
-    o = unblockify(o, hc, wc)
-    for _ in range(levels):
-        o = haar_iwt(o)
+    o = _branch_plain_f32(z, w_qkv, rel_h, rel_w, levels, block, halo)
     return (o + z.float()).to(dt)
 
 
+def halo_attention_qkv_plain(x: torch.Tensor, w_qkv: torch.Tensor,
+                             rel_h: torch.Tensor, rel_w: torch.Tensor, *,
+                             levels: int = 0, block: int = 8, halo: int = 1
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of K1n, the bare wavelet branch
+    ``IWT^L(attn(qkv(DWT^L(x))))``: no affine, no residual, rounded once
+    from the f32 IWT result. In f32 it is ``_xla_reference`` of the JAX
+    package."""
+    return _branch_plain_f32(x, w_qkv, rel_h, rel_w, levels, block,
+                             halo).to(x.dtype)
+
+
 def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
-    """Raise unless the operands are what K1 and K1b take."""
+    """Raise unless the operands are what K1, K1b and K1n (``s`` and ``t``
+    None) take."""
     bsz, h, w, cb = x.shape
     c = cb * 4 ** levels
     sfull = 2 ** levels
@@ -107,10 +138,12 @@ def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
     for name, rel in (("rel_h", rel_h), ("rel_w", rel_w)):
         need(rel.shape == (block + 2 * halo, c // 2) and rel.dtype == torch.float32
              and rel.is_contiguous(), f"{name} must be contiguous f32 (10, {c // 2})")
-    for name, v in (("s", s), ("t", t)):
-        need(v.shape == (bsz, cb) and v.dtype == torch.float32 and v.is_contiguous(),
-             f"{name} must be contiguous f32 ({bsz}, {cb})")
-    tensors = [x, w_qkv, rel_h, rel_w, s, t]
+    tensors = [x, w_qkv, rel_h, rel_w]
+    if s is not None:  # K1n has no affine
+        for name, v in (("s", s), ("t", t)):
+            need(v.shape == (bsz, cb) and v.dtype == torch.float32
+                 and v.is_contiguous(), f"{name} must be contiguous f32 ({bsz}, {cb})")
+        tensors += [s, t]
     if x_add is not None:
         need(x_add.shape == x.shape and x_add.dtype == torch.bfloat16
              and x_add.stride(3) == 1 and x_add.stride(1) == w * x_add.stride(2)
@@ -254,3 +287,61 @@ def cftm_branch(x: torch.Tensor, w_qkv: torch.Tensor, rel_h: torch.Tensor,
 
 
 cftm_branch.launches = 0  # kernel launches, counted at each launch
+
+
+def _launch_qkv(x, w_qkv, rel_h, rel_w, levels, block, halo):
+    _check(x, w_qkv, rel_h, rel_w, None, None, None, levels, block, halo)
+    bsz, h, w, cb = x.shape
+    c = cb * 4 ** levels
+    lib = build.lib()
+    if lib.m2t_cftm_branch_smem(c) > build.MAX_SMEM:
+        raise ValueError(f"halo_attention_qkv kernel: C={c} needs more shared "
+                         "memory than a block has")
+    out = torch.empty((bsz, h, w, cb), dtype=x.dtype, device=x.device)
+    code = lib.m2t_halo_attn_qkv(
+        x.data_ptr(), w_qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        out.data_ptr(), bsz, h, w, cb, levels, x.stride(0), x.stride(1),
+        x.stride(2), build.stream_ptr(x.device))
+    build.check(code, "halo_attention_qkv")
+    halo_attention_qkv.launches += 1
+    return out
+
+
+class HaloAttnQkvFn(torch.autograd.Function):
+    """K1n forward; the backward is the plain version's VJP, as the TPU
+    kernel's custom_vjp differentiates its XLA composition."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, rel_h, rel_w, levels, block, halo):
+        ctx.save_for_backward(x, w_qkv, rel_h, rel_w)
+        ctx.cfg = (levels, block, halo)
+        return _launch_qkv(x, w_qkv, rel_h, rel_w, levels, block, halo)
+
+    @staticmethod
+    def backward(ctx, gout):
+        ins = [v.detach().requires_grad_(True) for v in ctx.saved_tensors]
+        levels, block, halo = ctx.cfg
+        with torch.enable_grad():
+            out = halo_attention_qkv_plain(*ins, levels=levels, block=block,
+                                           halo=halo)
+        return (*torch.autograd.grad(out, ins, gout.to(out.dtype)),
+                None, None, None)
+
+
+def halo_attention_qkv(x: torch.Tensor, w_qkv: torch.Tensor,
+                       rel_h: torch.Tensor, rel_w: torch.Tensor, *,
+                       levels: int = 0, block: int = 8, halo: int = 1
+                       ) -> torch.Tensor:
+    """K1n, the bare wavelet branch ``IWT^L(attn(qkv(DWT^L(x))))``,
+    differentiable. CUDA tensors launch the kernel (bf16 x, a channel slice
+    of a contiguous NHWC tensor, bf16 w_qkv, f32 rel); CPU tensors run the
+    plain version."""
+    if x.device.type == "cuda":
+        return HaloAttnQkvFn.apply(x, w_qkv, rel_h, rel_w, levels, block, halo)
+    if x.device.type == "cpu":
+        return halo_attention_qkv_plain(x, w_qkv, rel_h, rel_w, levels=levels,
+                                        block=block, halo=halo)
+    raise ValueError(f"halo_attention_qkv: unsupported device {x.device}")
+
+
+halo_attention_qkv.launches = 0  # kernel launches, counted at each launch

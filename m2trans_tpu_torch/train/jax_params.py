@@ -1,11 +1,11 @@
 """JAX params pytree <-> the port's model, for holding the port against the
 JAX package with the same weights.
 
-Built on the JAX package's numpy-only converter
-(``m2trans_tpu.train.convert``, which loads no jax), imported as it is.
-This is the one module of the port that imports the JAX package; the
-serving path (``infer``, ``parallel.streaming``, ``train.checkpoint``) and
-``chip_smoke.py`` do not import it, and a test checks that.
+Built on the port's own numpy converter
+(:mod:`m2trans_tpu_torch.train.convert`); like every module of the port it
+imports nothing of the JAX package. The pytree is plain dicts and lists of
+arrays, so the tests hand it over without either package importing the
+other.
 """
 
 from __future__ import annotations
@@ -14,15 +14,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from m2trans_tpu.train.convert import (
-    params_to_torch_state_dict,
-    torch_state_dict_to_params,
-)
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import M2Trans
 from m2trans_tpu_torch.train.convert import (
     load_reference_state_dict,
+    params_to_torch_state_dict,
     reference_state_dict,
+    torch_state_dict_to_params,
 )
 
 

@@ -341,9 +341,19 @@ def test_unported_options_raise(option):
 
 
 def test_full_metrics_raise():
+    """``full_metrics`` is ported (it raised "not yet ported" before the
+    eval slice): it adds FSIM and GMSD to the result. What still raises is
+    an SR frame that does not match its HR frame."""
     cfg = Config(scale=2, n_feats=8, n_blocks=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        evaluate_dataset(init_m2trans(cfg), cfg, [], full_metrics=True)
+    rng = np.random.default_rng(0)
+    lr = rng.uniform(0, 1, (1, 16, 24, 3)).astype(np.float32)
+    hr = rng.uniform(0, 1, (1, 32, 48, 3)).astype(np.float32)
+    model = init_m2trans(cfg)
+    out = evaluate_dataset(model, cfg, [(lr, hr, "a.png")], full_metrics=True)
+    assert set(out) == {"psnr", "ssim", "fsim", "gmsd"}
+    assert 0.0 < out["fsim"] <= 1.0 and out["gmsd"] >= 0.0
+    with pytest.raises(ValueError, match="SR .* != HR"):
+        evaluate_dataset(model, cfg, [(lr, hr[:, :30], "a.png")], full_metrics=True)
 
 
 def test_lambda_clip_without_medclip_trains_l1(tmp_path, monkeypatch, capsys):
