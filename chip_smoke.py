@@ -18,7 +18,9 @@ phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
 of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted from the
-operands of this run), the last ``{"ok": true, "device": {...}}``.
+operands of this run; K1's and K3's rows also carry ``device_ms``, the
+device time from torch.profiler, and K1's the body each level launched),
+the last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 ``m2trans_tpu_torch`` package is not beside it.
@@ -321,7 +323,8 @@ def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96)):
 def profile_split(fn) -> str:
     """Device time of one call of ``fn`` by kind of kernel, from
     torch.profiler (CUPTI); "not measured" where it records no device
-    time."""
+    time. "K1" is the general body of csrc/cftm_branch.cu (L = 0, 1), "K1
+    c256" its cluster body (L = 2 at base width 16)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -330,8 +333,8 @@ def profile_split(fn) -> str:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0,
-             "reduce": 0.0, "other": 0.0}
+    kinds = {"K1": 0.0, "K1 c256": 0.0, "K1b": 0.0, "K2": 0.0, "K2b": 0.0,
+             "K3": 0.0, "reduce": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host ops; their device time is their kernels'
@@ -339,7 +342,9 @@ def profile_split(fn) -> str:
         if us is None:
             us = ev.cuda_time_total
         k = ev.key
-        kind = ("K1b" if "cftm_bwd" in k else "K1" if "cftm_branch_kernel" in k
+        kind = ("K1b" if "cftm_bwd" in k
+                else "K1 c256" if "cftm_branch_c256_kernel" in k
+                else "K1" if "cftm_branch_kernel" in k
                 else "K2b" if "tail_band_bwd_kernel" in k
                 else "K2" if "tail_band_kernel" in k
                 else "K3" if "ff_conv_kernel" in k
@@ -369,6 +374,7 @@ def run() -> dict:
         cftm_branch_bwd,
         cftm_branch_plain,
         cftm_branch_plain_vjp,
+        cftm_branch_variant,
         halo_attention_qkv,
         halo_attention_qkv_plain,
     )
@@ -399,10 +405,12 @@ def run() -> dict:
     print(f"phase 2 built {os.path.relpath(lib_path, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds} s)")
 
-    # 3. K1 vs its plain version at the slice shapes
+    # 3. K1 vs its plain version at the slice shapes, and L=2 also at the
+    # single-frame StreamingSR shape: 256 windows, not a multiple of the
+    # clusters the card holds at once
     k1_err, parts = 0.0, []
-    for levels in (0, 1, 2):
-        args, add = branch_case(levels, seed=levels)
+    for levels, bsz, hw in ((0, 8, 96), (1, 8, 96), (2, 8, 96), (2, 1, 512)):
+        args, add = branch_case(levels, bsz=bsz, hw=hw, seed=levels)
         for x_add in (None, add):
             got = cftm_branch(*args, x_add=x_add, levels=levels)
             want = cftm_branch_plain(*args, x_add=x_add, levels=levels)
@@ -410,11 +418,16 @@ def run() -> dict:
             mx, mean = errs(got, want)
             need(torch.isfinite(got.float()).all().item(), "K1 output not finite")
             need(mx < K1_TOL[0] and mean < K1_TOL[1],
-                 f"K1 L={levels} add={x_add is not None}: max {mx} mean {mean}")
+                 f"K1 L={levels} {bsz}x{hw}x{hw} add={x_add is not None}: "
+                 f"max {mx} mean {mean}")
             k1_err = max(k1_err, mx)
-            parts.append(f"L{levels}{'+add' if x_add is not None else ''} "
+            parts.append(f"L{levels}{'' if bsz == 8 else f' {bsz}x{hw}x{hw}'}"
+                         f"{'+add' if x_add is not None else ''} "
                          f"max {mx:.3g} mean {mean:.3g}")
-    print("phase 3 K1 cftm_branch vs plain (bf16, 8x96x96x16): " + "; ".join(parts))
+    k1_variant = {levels: cftm_branch_variant(16, levels) for levels in (0, 1, 2)}
+    print("phase 3 K1 cftm_branch vs plain (bf16, 8x96x96x16 and, at L=2, "
+          "1x512x512x16): " + "; ".join(parts) + "; bodies launched L0/L1/L2 "
+          + "/".join(k1_variant[i] for i in range(3)))
 
     # 4. K2 vs its plain version: the x4 slice shape, and x2 / x3
     k2_err, parts = 0.0, []
@@ -496,7 +509,7 @@ def run() -> dict:
               f"report {json.dumps(report)}")
 
         # 7. times, CUDA events, median of 20 after warm-up
-        k1_ms, k1_plain_ms, k1_bound = {}, {}, {}
+        k1_ms, k1_plain_ms, k1_bound, k1_dev = {}, {}, {}, {}
         for levels in (0, 1, 2):
             args, add = branch_case(levels, seed=levels)
             x_add = None if levels == 0 else add
@@ -519,12 +532,22 @@ def run() -> dict:
             port_model.ff_conv = ff_conv
         fwd_ms2 = time_ms(lambda: model(x, kern))
         fwd_plain_ms = time_ms(lambda: m2trans_apply(model, x, cfg, plain))
+        # the profiler comes after every event timing of this phase: once it
+        # has run, launches from this process cost the host more
+        for levels in (0, 1, 2):
+            args, add = branch_case(levels, seed=levels)
+            x_add = None if levels == 0 else add
+            k1_dev[levels] = device_ms(
+                lambda: cftm_branch(*args, x_add=x_add, levels=levels))
         fwd_split = profile_split(lambda: model(x, kern))
         mp = 8 * 384 * 384 / 1e6
         print(f"phase 7 times (ms, median of 20): K1 L0/L1/L2 "
               f"{k1_ms[0]:.4f}/{k1_ms[1]:.4f}/{k1_ms[2]:.4f} vs plain "
-              f"{k1_plain_ms[0]:.4f}/{k1_plain_ms[1]:.4f}/{k1_plain_ms[2]:.4f}; "
-              f"K2 x4 {k2_ms:.4f} vs plain {k2_plain_ms:.4f}; forward b8 96x96 "
+              f"{k1_plain_ms[0]:.4f}/{k1_plain_ms[1]:.4f}/{k1_plain_ms[2]:.4f}, "
+              f"device time from the profiler "
+              + "/".join(fmt_ms(k1_dev[i]) for i in range(3)) + ", bound "
+              + "/".join(f"{k1_bound[i]['bound_ms']:.5f}" for i in range(3))
+              + f"; K2 x4 {k2_ms:.4f} vs plain {k2_plain_ms:.4f}; forward b8 96x96 "
               f"kernels {fwd_ms:.3f} ms ({mp / fwd_ms * 1e3:.1f} MP/s), with the ff "
               f"conv plain {fwd_no_k3_ms:.3f} ms, kernels again {fwd_ms2:.3f} ms, vs "
               f"plain {fwd_plain_ms:.3f} ms ({mp / fwd_plain_ms * 1e3:.1f} MP/s); "
@@ -673,9 +696,10 @@ def run() -> dict:
     kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
     plain = ComputePolicy(dtype=torch.bfloat16, use_kernels=False)
 
-    # 12. K3 vs its plain version: the slice shape and a frame with edge tiles
+    # 12. K3 vs its plain version: the slice shape, a frame with edge tiles
+    # and the single-frame shape (2048 tiles, not a multiple of the grid)
     k3_err, parts = 0.0, []
-    for shp in ((8, 96, 96, 64), (2, 104, 88, 64)):
+    for shp in ((8, 96, 96, 64), (2, 104, 88, 64), (1, 512, 512, 64)):
         ops = ff_case(shp, seed=shp[1])
         got, want = ff_conv(*ops), ff_conv_plain(*ops)
         torch.cuda.synchronize()
@@ -922,7 +946,9 @@ def run() -> dict:
          "replaces": pallas + "halo_attn.py:267",
          "launches": launches["cftm_branch"], "max_abs_err": k1_err,
          "ms": per_cftm(k1_ms), "plain_ms": per_cftm(k1_plain_ms),
-         **cftm_bound(k1_bound), "library_ms": None},
+         **cftm_bound(k1_bound), "library_ms": None,
+         "device_ms": None if None in k1_dev.values() else per_cftm(k1_dev),
+         "device_ms_by_level": k1_dev, "variant_by_level": k1_variant},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
          "launches": launches["tail_band"], "max_abs_err": k2_err,
@@ -940,7 +966,8 @@ def run() -> dict:
         {"name": "ff_conv", "route": "cuda", "source": csrc + "ff_conv.cu",
          "replaces": pallas + "ff_pair.py:60",
          "launches": launches["ff_conv"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound, "library_ms": k3_lib_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound, "library_ms": k3_lib_ms,
+         "device_ms": k3_dev[0], "library_device_ms": k3_dev[2]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",
          "launches": k1n_launches, "max_abs_err": k1n_err,

@@ -50,6 +50,8 @@ SIGNATURES = {
                         LL, LL, LL, LL, LL, LL,    # x / xadd strides b, h, w
                         F, P],                     # r, stream
     "m2t_cftm_branch_smem": [I],
+    "m2t_cftm_branch_variant": [I, I],             # Cb levels
+    "m2t_cftm_branch_clusters": [],
     "m2t_halo_attn_qkv": [P, P, P, P, P,          # x w relh relw out
                           I, I, I, I, I,           # B H W Cb levels
                           LL, LL, LL, P],          # x strides b, h, w; stream

@@ -5,8 +5,15 @@ Replaces the TPU kernels ``ff_pair_conv_fused``
 (m2trans_tpu/ops/pallas/ff_pair.py, ``_kernel``) and ``packed_ff_conv``
 (m2trans_tpu/ops/pallas/ff_packed.py, ``_kernel``). Lane packing and the
 pair-major permutation were TPU choices; on the card they are one kernel,
-``csrc/ff_conv.cu``, whose header says what bounds it and how its design
-answers that.
+``csrc/ff_conv.cu``. Bytes bind it (three tensors moved for 2*9*C FLOP a
+value), so its design keeps the memory system busy while the tensor cores
+work: a persistent grid of one block per SM that holds the 9*C*C weight in
+shared memory for all its 8x16-pixel tiles, up to four groups of four warps
+that each fill their own 10x18xC window buffer with ``cp.async`` (zero-fill
+beyond the frame) while the other groups multiply or store, the nine
+shifted products on ``mma.sync.m16n8k16`` with ``ldmatrix`` operands, and
+an epilogue of 16-byte vectors. Its header has the detail and the reason
+``wgmma`` was not taken.
 
     out = bf16( bf16( bf16(conv3x3_zeros(oc, w)) + b ) + x )
 

@@ -7,9 +7,18 @@ Replaces the TPU kernels behind ``cftm_branch_fused``
 ``_cascade_tiled_impl``; m2trans_tpu/ops/pallas/halo_attn_packed.py:
 ``_packed_cascade_kernel`` via ``packed_cascade_core``,
 ``_packed_front_kernel`` via ``packed_front_core``). Row bands, column
-slabs and lane packing were TPU choices; on the card they are one kernel,
-``csrc/cftm_branch.cu``, whose header says what bounds it and how its
-design answers that.
+slabs and lane packing were TPU choices; on the card they are one source,
+``csrc/cftm_branch.cu``, with two bodies taken by shape alone
+(:func:`cftm_branch_variant` names the one a shape launches). At C = Cb *
+4**L = 256 with Cb = 16 (L = 2 on the flagship path) operations and the
+room for them bind: the 384 KB weight exceeds a block's shared memory and a
+batch has fewer windows than the card has SMs, so one window is split over
+a thread-block cluster of four CTAs (``cluster_*`` below state the split on
+tensors), each streaming its 256x192 weight slice through a ``cp.async``
+ring into ``mma.sync`` + ``ldmatrix`` products and exchanging partial
+logits, probabilities and ``P v`` through distributed shared memory. Every
+other shape takes the general body, one block per window on WMMA. The
+header has the detail, the waves and the reason ``wgmma`` was not taken.
 
 K1b, its VJP (``csrc/cftm_branch_bwd.cu``), replaces the TPU backward
 kernels of ``cftm_branch_fused``'s custom_vjp (halo_attn.py
@@ -112,6 +121,80 @@ def halo_attention_qkv_plain(x: torch.Tensor, w_qkv: torch.Tensor,
                              halo).to(x.dtype)
 
 
+# K1's C = 256 body splits one window over a cluster of CLUSTER_SPLIT CTAs.
+# The functions below state, on tensors, which part of the operands each CTA
+# of the cluster works on; the kernel indexes the (C, 3C) weight and the
+# rel-pos tables in place, so nothing is rearranged on the host.
+CLUSTER_SPLIT = 4
+_VARIANTS = ("general", "c256_cluster4")
+
+
+def cluster_columns(c: int, split: int = CLUSTER_SPLIT) -> torch.Tensor:
+    """Coarse channels whose q, k and v columns each CTA of a window's
+    cluster projects, and over which it sums its partial logits: (split,
+    c/split) int64, rank r the contiguous channels [r*c/split,
+    (r+1)*c/split). With channel index ``g*cb + cc`` (g the subband) these
+    are the subbands [r*G/split, (r+1)*G/split) of every base channel."""
+    if c % split:
+        raise ValueError(f"c={c} is not a multiple of split={split}")
+    return torch.arange(c).reshape(split, c // split)
+
+
+def cluster_output_columns(cb: int, levels: int, split: int = CLUSTER_SPLIT
+                           ) -> torch.Tensor:
+    """Coarse channels of ``P v`` whose inverse wavelet transform each CTA
+    takes: (split, C/split) int64, rank r the base channels [r*cb/split,
+    (r+1)*cb/split) with all their subbands, in the order ``g*(cb/split) +
+    cc`` in which the CTAs hand them to it."""
+    if cb % split:
+        raise ValueError(f"cb={cb} is not a multiple of split={split}")
+    g, cbl = 4 ** levels, cb // split
+    r = torch.arange(split)[:, None, None]
+    gg = torch.arange(g)[None, :, None]
+    cc = torch.arange(cbl)[None, None, :]
+    return (gg * cb + r * cbl + cc).reshape(split, g * cbl)
+
+
+def cluster_weight_slices(w_qkv: torch.Tensor, split: int = CLUSTER_SPLIT
+                          ) -> torch.Tensor:
+    """The (C, 3C) q|k|v weight as the cluster's CTAs stage it: (split, C,
+    3*C/split), rank r's q, k and v columns side by side."""
+    c = w_qkv.shape[0]
+    cols = cluster_columns(c, split).to(w_qkv.device)
+    return torch.cat([w_qkv[:, part * c:(part + 1) * c][:, cols].permute(1, 0, 2)
+                      for part in range(3)], dim=-1)
+
+
+def cluster_weight_unslice(slices: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`cluster_weight_slices`: back to (C, 3C)."""
+    split, c, cl3 = slices.shape
+    cl = cl3 // 3
+    cols = cluster_columns(c, split).to(slices.device)
+    w = slices.new_empty(c, 3 * c)
+    for part in range(3):
+        for r in range(split):
+            w[:, part * c + cols[r]] = slices[r, :, part * cl:(part + 1) * cl]
+    return w
+
+
+def cluster_rel_slices(rel_h: torch.Tensor, rel_w: torch.Tensor,
+                       split: int = CLUSTER_SPLIT) -> torch.Tensor:
+    """The rel-pos tables as each CTA adds them to its k columns: (split,
+    win*win, C/split), row ``wr*win + wc`` of the key window, the first C/2
+    channels taking ``rel_h[wr]`` and the rest ``rel_w[wc]``."""
+    win = rel_h.shape[0]
+    full = torch.cat([rel_h[:, None, :].expand(win, win, -1),
+                      rel_w[None, :, :].expand(win, win, -1)], dim=-1)
+    cols = cluster_columns(full.shape[-1], split).to(rel_h.device)
+    return full.reshape(win * win, -1)[:, cols].permute(1, 0, 2)
+
+
+def cftm_branch_variant(cb: int, levels: int) -> str:
+    """Name of the body of ``csrc/cftm_branch.cu`` that K1 and K1n launch
+    for base width ``cb`` at ``levels``, as the built library decides it."""
+    return _VARIANTS[build.lib().m2t_cftm_branch_variant(cb, levels)]
+
+
 def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
     """Raise unless the operands are what K1, K1b and K1n (``s`` and ``t``
     None) take."""
@@ -151,6 +234,11 @@ def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
              "x_add must be a bf16 channel slice like x")
         tensors.append(x_add)
     need(all(v.device == dev for v in tensors), "all tensors on one device")
+    if levels == 2 and cb == 16:  # the cluster body reads x with vector loads
+        for name, v in (("x", x), ("x_add", x_add)):
+            need(v is None or (v.data_ptr() % 16 == 0 and v.stride(2) % 8 == 0),
+                 f"{name} must be 16-byte aligned with a pixel stride that is "
+                 "a multiple of 8")
 
 
 def _launch(x, w_qkv, rel_h, rel_w, s, t, x_add, r, levels, block, halo):

@@ -13,7 +13,9 @@ machine need not have). Tolerances are those of the CPU tests: K1 max
 ``max|a - b| <= max(2e-3, 2e-2 * max|b|)`` against the plain VJP (the
 bound of their gradient tests); K3 ``max|a - b| <= max(2e-3, 2e-2 *
 max|b|)`` (it differs from its plain version in the f32 order of the tap
-sums), its gradients to the same bound; K1n as K1; K4 exactly.
+sums), its gradients to the same bound; K1n as K1; K4 exactly. K1's
+cluster body (L = 2 at base width 16) and K3's persistent grid have cases
+of their own at shapes that do not fill their rounds.
 """
 
 import numpy as np
@@ -32,6 +34,7 @@ from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch_bwd,
     cftm_branch_plain,
     cftm_branch_plain_vjp,
+    cftm_branch_variant,
     halo_attention_qkv,
     halo_attention_qkv_plain,
 )
@@ -77,6 +80,53 @@ def test_k1_matches_plain(dev, levels, with_add):
     assert cftm_branch.launches == n0 + 1
     d = (got - want).abs()
     assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32, 32), (2, 64, 96), (3, 96, 32)])
+@pytest.mark.parametrize("mode", ["affine", "affine+add", "bare"])
+def test_k1_cluster_body_matches_plain(dev, shape, mode):
+    """L = 2 at base width 16 (C = 256) runs the body that splits a window
+    over a cluster of four CTAs: one window alone, several windows and
+    images, with and without the cascade add, and as K1n."""
+    assert cftm_branch_variant(16, 2) == "c256_cluster4"
+    assert cftm_branch_variant(16, 1) == cftm_branch_variant(4, 2) == "general"
+    rng = np.random.default_rng(shape[1] + len(mode))
+    bsz, h, w = shape
+    body = _randn(rng, (bsz, h, w, 64), dtype=torch.bfloat16)
+    wq = _randn(rng, (256, 768), 1 / 16, torch.bfloat16)
+    rel_h, rel_w = _randn(rng, (10, 128)), _randn(rng, (10, 128))
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, (bsz, 16)).astype(np.float32))
+    t = _randn(rng, (bsz, 16), 0.2)
+    add = _randn(rng, (bsz, h, w, 16), dtype=torch.bfloat16)
+    x, xd = body[..., 32:48], body.to(dev)[..., 32:48]
+    if mode == "bare":
+        want = halo_attention_qkv_plain(x, wq, rel_h, rel_w, levels=2)
+        n0 = halo_attention_qkv.launches
+        got = halo_attention_qkv(xd, wq.to(dev), rel_h.to(dev), rel_w.to(dev), levels=2)
+        assert halo_attention_qkv.launches == n0 + 1
+    else:
+        x_add = add if mode == "affine+add" else None
+        want = cftm_branch_plain(x, wq, rel_h, rel_w, s, t, x_add=x_add, levels=2)
+        n0 = cftm_branch.launches
+        got = cftm_branch(xd, wq.to(dev), rel_h.to(dev), rel_w.to(dev), s.to(dev),
+                          t.to(dev), x_add=None if x_add is None else x_add.to(dev),
+                          levels=2)
+        assert cftm_branch.launches == n0 + 1
+    d = (got.float().cpu() - want.float()).abs()
+    assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+def test_k1_cluster_body_raises_on_a_misaligned_slice(dev):
+    """The cluster body reads x with vector loads; a slice that does not
+    start on 16 bytes raises instead of running another body."""
+    rng = np.random.default_rng(9)
+    body = _randn(rng, (1, 32, 32, 24), dtype=torch.bfloat16).to(dev)
+    wq = _randn(rng, (256, 768), 1 / 16, torch.bfloat16).to(dev)
+    rel = _randn(rng, (10, 128)).to(dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        halo_attention_qkv(body[..., 4:20], wq, rel, rel, levels=2)
 
 
 @pytest.mark.cuda
@@ -216,9 +266,15 @@ def _ff_operands(rng, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 13, 21, 64),
-                                   (2, 8, 16, 16), (1, 9, 40, 96)])
+                                   (2, 8, 16, 16), (1, 9, 40, 96),
+                                   (2, 104, 88, 64), (1, 8, 8, 16),
+                                   (1, 40, 24, 96), (1, 24, 16, 80),
+                                   (1, 512, 512, 64)])
 def test_k3_matches_plain(dev, shape):
-    """Whole tiles, edge tiles in both directions, and other widths."""
+    """Whole tiles, edge tiles in both directions, a frame smaller than one
+    tile, fewer tiles than the grid has blocks and more than a multiple of
+    them, and the other widths (C = 80 and 96 run with fewer window
+    buffers)."""
     ops = _ff_operands(np.random.default_rng(shape[1]), shape)
     want = ff_conv_plain(*ops).float()
     n0 = ff_conv.launches
