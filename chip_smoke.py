@@ -18,8 +18,8 @@ phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
 of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted from the
-operands of this run; K1's and K3's rows also carry ``device_ms``, the
-device time from torch.profiler, and K1's the body each level launched),
+operands of this run; K1's, K2's and K3's rows also carry ``device_ms``,
+the device time from torch.profiler, and K1's the body each level launched),
 the last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
@@ -225,7 +225,8 @@ def parse_eval(out: str) -> dict:
 
 def branch_case(levels, bsz=8, hw=96, cb=16, seed=0):
     """K1 operands at the slice shapes: x as a channel slice of a 4*cb
-    NHWC body tensor, as the model passes it."""
+    NHWC body tensor, as the model passes it (cb = 16 on the model path; any
+    other base width goes to the general body)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -323,8 +324,11 @@ def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96)):
 def profile_split(fn) -> str:
     """Device time of one call of ``fn`` by kind of kernel, from
     torch.profiler (CUPTI); "not measured" where it records no device
-    time. "K1" is the general body of csrc/cftm_branch.cu (L = 0, 1), "K1
-    c256" its cluster body (L = 2 at base width 16)."""
+    time. "K1 w16" and "K1 w64" are the window bodies of
+    csrc/cftm_window.cuh (L = 0 and L = 1 at base width 16), "K1 c256" the
+    cluster body (L = 2), "K1 general" the body of every other width. In a
+    train step "K2" is two launches of K2's kernel: the forward, and K2b's
+    first pass (the clip mask), which runs the same kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,8 +337,9 @@ def profile_split(fn) -> str:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"K1": 0.0, "K1 c256": 0.0, "K1b": 0.0, "K2": 0.0, "K2b": 0.0,
-             "K3": 0.0, "reduce": 0.0, "other": 0.0}
+    kinds = {"K1 w16": 0.0, "K1 w64": 0.0, "K1 c256": 0.0, "K1 general": 0.0,
+             "K1b": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0, "reduce": 0.0,
+             "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host ops; their device time is their kernels'
@@ -344,7 +349,9 @@ def profile_split(fn) -> str:
         k = ev.key
         kind = ("K1b" if "cftm_bwd" in k
                 else "K1 c256" if "cftm_branch_c256_kernel" in k
-                else "K1" if "cftm_branch_kernel" in k
+                else "K1 w16" if "cftm_branch_w16_kernel" in k
+                else "K1 w64" if "cftm_branch_w64_kernel" in k
+                else "K1 general" if "cftm_branch_kernel" in k
                 else "K2b" if "tail_band_bwd_kernel" in k
                 else "K2" if "tail_band_kernel" in k
                 else "K3" if "ff_conv_kernel" in k
@@ -405,12 +412,14 @@ def run() -> dict:
     print(f"phase 2 built {os.path.relpath(lib_path, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds} s)")
 
-    # 3. K1 vs its plain version at the slice shapes, and L=2 also at the
-    # single-frame StreamingSR shape: 256 windows, not a multiple of the
-    # clusters the card holds at once
+    # 3. K1 vs its plain version at the slice shapes and at the single-frame
+    # StreamingSR shape (more windows than the card holds at once), and at a
+    # base width the bodies of width 16 do not take (the general body)
     k1_err, parts = 0.0, []
-    for levels, bsz, hw in ((0, 8, 96), (1, 8, 96), (2, 8, 96), (2, 1, 512)):
-        args, add = branch_case(levels, bsz=bsz, hw=hw, seed=levels)
+    for levels, bsz, hw, cb in ((0, 8, 96, 16), (1, 8, 96, 16), (2, 8, 96, 16),
+                                (0, 1, 512, 16), (1, 1, 512, 16), (2, 1, 512, 16),
+                                (0, 2, 32, 32), (1, 2, 32, 32)):
+        args, add = branch_case(levels, bsz=bsz, hw=hw, cb=cb, seed=levels)
         for x_add in (None, add):
             got = cftm_branch(*args, x_add=x_add, levels=levels)
             want = cftm_branch_plain(*args, x_add=x_add, levels=levels)
@@ -418,25 +427,37 @@ def run() -> dict:
             mx, mean = errs(got, want)
             need(torch.isfinite(got.float()).all().item(), "K1 output not finite")
             need(mx < K1_TOL[0] and mean < K1_TOL[1],
-                 f"K1 L={levels} {bsz}x{hw}x{hw} add={x_add is not None}: "
+                 f"K1 L={levels} {bsz}x{hw}x{hw}x{cb} add={x_add is not None}: "
                  f"max {mx} mean {mean}")
             k1_err = max(k1_err, mx)
-            parts.append(f"L{levels}{'' if bsz == 8 else f' {bsz}x{hw}x{hw}'}"
+            parts.append(f"L{levels}{'' if bsz == 8 else f' {bsz}x{hw}x{hw}x{cb}'}"
                          f"{'+add' if x_add is not None else ''} "
                          f"max {mx:.3g} mean {mean:.3g}")
     k1_variant = {levels: cftm_branch_variant(16, levels) for levels in (0, 1, 2)}
-    print("phase 3 K1 cftm_branch vs plain (bf16, 8x96x96x16 and, at L=2, "
-          "1x512x512x16): " + "; ".join(parts) + "; bodies launched L0/L1/L2 "
-          + "/".join(k1_variant[i] for i in range(3)))
+    need(list(k1_variant.values()) == ["w16_warp", "w64_warpgroup", "c256_cluster4"]
+         and cftm_branch_variant(32, 0) == cftm_branch_variant(32, 1) == "general",
+         f"K1 bodies by shape: {k1_variant}, width 32 "
+         f"{cftm_branch_variant(32, 0)}/{cftm_branch_variant(32, 1)}")
+    resident = [build.lib().m2t_cftm_branch_resident(i) for i in range(3)]
+    need(min(resident) > 0, f"K1 occupancy query failed: {resident}")
+    print("phase 3 K1 cftm_branch vs plain (bf16, 8x96x96x16, 1x512x512x16 and, "
+          "on the general body, 2x32x32x32): " + "; ".join(parts)
+          + "; bodies launched L0/L1/L2 " + "/".join(k1_variant[i] for i in range(3))
+          + f"; windows (L2: clusters) resident at once {resident}")
 
-    # 4. K2 vs its plain version: the x4 slice shape, and x2 / x3
+    # 4. K2 vs its plain version: the x4 slice shape, the single-frame
+    # shape, frames that are no multiple of its 8x16 tile in either
+    # direction, and x2 / x3
     k2_err, parts = 0.0, []
-    for scale, shp in ((4, (8, 96, 96)), (2, (2, 48, 40)), (3, (2, 32, 24))):
+    for scale, shp in ((4, (8, 96, 96)), (4, (1, 512, 512)), (4, (2, 100, 76)),
+                       (2, (2, 48, 40)), (3, (2, 32, 24)), (3, (1, 50, 37)),
+                       (2, (1, 7, 5))):
         ops = tail_case(scale, *shp, seed=scale)
         got = tail_band_fused(*ops, scale=scale, rgb_range=1.0)
         want = tail_band_plain(*ops, scale=scale, rgb_range=1.0)
         torch.cuda.synchronize()
         mx, _ = errs(got, want)
+        need(torch.isfinite(got.float()).all().item(), "K2 output not finite")
         need(mx < K2_TOL, f"K2 x{scale} {shp}: max {mx}")
         k2_err = max(k2_err, mx)
         parts.append(f"x{scale} {shp} max {mx:.3g}")
@@ -522,6 +543,7 @@ def run() -> dict:
         k2_ms = time_ms(lambda: tail_band_fused(*ops, scale=4, rgb_range=1.0))
         k2_plain_ms = time_ms(lambda: tail_band_plain(*ops, scale=4, rgb_range=1.0))
         k2_bound = bound(nbytes(*ops) + 2 * 8 * 96 * 96 * 48, tail_flops(ops[0], 4))
+        ops_frame = tail_case(4, 1, 512, 512, seed=5)
         fwd_ms = time_ms(lambda: model(x, kern))
         # the same forward with the ff conv as its plain composition (cuDNN
         # conv, bias add, residual add), K1 and K2 still the kernels
@@ -539,6 +561,20 @@ def run() -> dict:
             x_add = None if levels == 0 else add
             k1_dev[levels] = device_ms(
                 lambda: cftm_branch(*args, x_add=x_add, levels=levels))
+        k1_frame_dev = {}
+        for levels in (0, 1):  # the single-frame shape, per window
+            args, add = branch_case(levels, bsz=1, hw=512, seed=levels)
+            x_add = None if levels == 0 else add
+            k1_frame_dev[levels] = device_ms(
+                lambda: cftm_branch(*args, x_add=x_add, levels=levels))
+        k2_dev = device_ms(lambda: tail_band_fused(*ops, scale=4, rgb_range=1.0))
+        k2_frame_dev = device_ms(
+            lambda: tail_band_fused(*ops_frame, scale=4, rgb_range=1.0))
+        k2_small_dev = {}
+        for scale, shp in ((2, (8, 96, 96)), (3, (8, 96, 96))):
+            ops_s = tail_case(scale, *shp, seed=scale)
+            k2_small_dev[scale] = device_ms(
+                lambda: tail_band_fused(*ops_s, scale=scale, rgb_range=1.0))
         fwd_split = profile_split(lambda: model(x, kern))
         mp = 8 * 384 * 384 / 1e6
         print(f"phase 7 times (ms, median of 20): K1 L0/L1/L2 "
@@ -547,7 +583,12 @@ def run() -> dict:
               f"device time from the profiler "
               + "/".join(fmt_ms(k1_dev[i]) for i in range(3)) + ", bound "
               + "/".join(f"{k1_bound[i]['bound_ms']:.5f}" for i in range(3))
-              + f"; K2 x4 {k2_ms:.4f} vs plain {k2_plain_ms:.4f}; forward b8 96x96 "
+              + ", at 1x512x512x16 L0/L1 "
+              + "/".join(fmt_ms(k1_frame_dev[i]) for i in range(2))
+              + f"; K2 x4 {k2_ms:.4f} vs plain {k2_plain_ms:.4f}, device time "
+              f"{fmt_ms(k2_dev)} (bound {k2_bound['bound_ms']:.5f}), at 1x512x512x64 "
+              f"{fmt_ms(k2_frame_dev)}, x2 / x3 at 8x96x96x64 "
+              f"{fmt_ms(k2_small_dev[2])} / {fmt_ms(k2_small_dev[3])}; forward b8 96x96 "
               f"kernels {fwd_ms:.3f} ms ({mp / fwd_ms * 1e3:.1f} MP/s), with the ff "
               f"conv plain {fwd_no_k3_ms:.3f} ms, kernels again {fwd_ms2:.3f} ms, vs "
               f"plain {fwd_plain_ms:.3f} ms ({mp / fwd_plain_ms * 1e3:.1f} MP/s); "
@@ -948,11 +989,16 @@ def run() -> dict:
          "ms": per_cftm(k1_ms), "plain_ms": per_cftm(k1_plain_ms),
          **cftm_bound(k1_bound), "library_ms": None,
          "device_ms": None if None in k1_dev.values() else per_cftm(k1_dev),
-         "device_ms_by_level": k1_dev, "variant_by_level": k1_variant},
+         "device_ms_by_level": k1_dev, "variant_by_level": k1_variant,
+         "bound_ms_by_level": {i: k1_bound[i]["bound_ms"] for i in range(3)},
+         "bound_by_by_level": {i: k1_bound[i]["bound_by"] for i in range(3)},
+         "device_ms_1x512x512_by_level": k1_frame_dev,
+         "resident_by_level": dict(enumerate(resident))},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
          "launches": launches["tail_band"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None,
+         "device_ms": k2_dev, "device_ms_1x512x512": k2_frame_dev},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
          "replaces": pallas + "halo_attn.py:1053",

@@ -21,7 +21,13 @@
 // At L=2 the coarse channel index is sb2*4Cb + sb1*Cb + c, the order of two
 // stacked haar_dwt calls.
 //
-// Two bodies, taken by shape alone.
+// Four bodies, taken by shape alone (m2t_cftm_branch_variant names them).
+//
+// Cb = 16 at L = 0 (C = 16) and at L = 1 (C = 64), the first two branches of
+// the flagship CFTM: cftm_branch_w16_kernel and cftm_branch_w64_kernel in
+// cftm_window.cuh, a window to a warp and to a group of four warps, softmax
+// on the accumulator registers; that header says what bounds them and what
+// the design does about it.
 //
 // C = Cb * 4^L = 256 with Cb = 16 and L = 2 (the third and fourth branch
 // of the flagship CFTM): cftm_branch_c256_kernel. What bounds it on the
@@ -63,7 +69,7 @@
 // one more cluster barrier keeps the other CTAs' stores out of a ring that
 // is still read.
 // Waves: 62 clusters are resident on the card's 132 SMs (measured,
-// m2t_cftm_branch_clusters), so the 72 windows of 8 x 96 x 96 run in 2
+// m2t_cftm_branch_resident), so the 72 windows of 8 x 96 x 96 run in 2
 // rounds (1.16), the second of 10 clusters, and the 256 windows of
 // 1 x 512 x 512 in 5 (4.13).
 // mma.sync with ldmatrix and not wgmma: the products of one CTA are 112
@@ -72,31 +78,37 @@
 // is the latency of the weight's way from L2 and the idle SMs, which the
 // ring and the split answer.
 //
-// Every other shape: cftm_branch_kernel, one thread block per (image,
-// coarse 8x8 query block). It recomputes the q/k/v projection of its 10x10
-// window (the 100/64 halo overlap) so that nothing but x, x_add and the
-// output crosses device memory. What bounds it on the card: the latency
-// of the weight's WMMA fragments from L2 (C = 16 and 64 on the path, 1.5
-// and 24 KB of weight). The projection, q k^T and P v run on the tensor
-// cores through WMMA (bf16 in, f32 accumulate), with the weight streamed
-// from L2 tile by tile; the window's zc/q/k/v live in shared memory in
-// bf16, with the f32 logits and the f32 output overlaid on buffers already
-// consumed; rows padded by 16 bytes against bank conflicts in the
-// fragment loads.
+// Every other shape (base widths other than 16, none of them on a model
+// path): cftm_branch_kernel, one thread block per (image, coarse 8x8 query
+// block). It recomputes the q/k/v projection of its 10x10 window (the 100/64
+// halo overlap) so that nothing but x, x_add and the output crosses device
+// memory. What bounds it on the card: the latency of the weight's WMMA
+// fragments from L2 and its six phases between block barriers. The
+// projection, q k^T and P v run on the tensor cores through WMMA (bf16 in,
+// f32 accumulate), with the weight streamed from L2 tile by tile; the
+// window's zc/q/k/v live in shared memory in bf16, with the f32 logits and
+// the f32 output overlaid on buffers already consumed; rows padded by 16
+// bytes against bank conflicts in the fragment loads. K1b recomputes through
+// the same steps (cftm_common.cuh).
 // Softmax, the wavelets and the affine stay on the CUDA cores in f32.
 
 #include <cooperative_groups.h>
 
+#include <stdint.h>
+
 #include "cftm_common.cuh"
 #include "mma_ptx.cuh"
 
-// Timing ablation of the C = 256 body (tools/kernel_ablation.py builds it;
-// results are wrong by design): with M2T_K1_STOP = n every CTA returns after
-// step n (1 nothing but the launch, 2 zc, 3 projection, 4 partial logits,
-// 5 softmax, 6 P v).
+// Timing ablation of every body (tools/kernel_ablation.py builds it;
+// results are wrong by design): with M2T_K1_STOP = n a window's work ends
+// after step n (1 nothing but the launch, 2 zc, 3 projection, 4 (partial)
+// logits, 5 softmax, 6 P v).
 #ifndef M2T_K1_STOP
 #define M2T_K1_STOP 0
 #endif
+
+#include "cftm_window.cuh"
+
 #define M2T_K1_STOP_AT(n)                 \
   if (M2T_K1_STOP == (n)) {               \
     cp_async_wait<0>();                   \
@@ -133,22 +145,27 @@ cftm_branch_kernel(BranchArgs a) {
   bf16* vs = reinterpret_cast<bf16*>(smem + lay.v);
   float* O = reinterpret_cast<float*>(smem + lay.q);
   float* stage = reinterpret_cast<float*>(smem + lay.stage) + warp * 16 * SLD;
+  if (M2T_K1_STOP == 1) return;
 
   // 1. affine + mask + cascade add, DWT^L -> zc (rows >= NK are zero)
   load_zc<L>(a, b, bi, bj, NKP, zc);
   __syncthreads();
+  if (M2T_K1_STOP == 2) return;
 
   // 2. qkv projection on the tensor cores
   project_qkv(a, C, zc, qs, ks, vs, stage);
   __syncthreads();
+  if (M2T_K1_STOP == 3) return;
 
   // 3. logits q k^T (f32) over the padded key slots
   logits(C, qs, ks, sim);
   __syncthreads();
+  if (M2T_K1_STOP == 4) return;
 
   // 4. softmax over the 100 real keys, f32; P in bf16, zero on pad slots
   softmax_rows(sim, P, false);
   __syncthreads();
+  if (M2T_K1_STOP == 5) return;
 
   // 5. O = P v (f32), over q and k which are consumed
   {
@@ -170,6 +187,7 @@ cftm_branch_kernel(BranchArgs a) {
     }
   }
   __syncthreads();
+  if (M2T_K1_STOP == 6) return;
 
   // 6. IWT^L + residual z (none for the bare branch), bf16 out
   for (int item = tid; item < NQ * Cb; item += THREADS) {
@@ -651,14 +669,78 @@ cudaError_t launch(const BranchArgs& a, cudaStream_t stream) {
 
 }  // namespace c256
 
-// Which body a shape takes: 1 the cluster body, 0 the general one.
+// ---- the window-per-warp(-group) bodies of cftm_window.cuh ----------------
+
+namespace win = m2t_cftm_win;
+
+template <typename K>
+cudaError_t blocks_per_sm(K kernel, int threads, int smem, int& blocks, int& sms) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+}
+
+// Windows of the body for `levels` (0: w16, 1: w64) that the card holds at
+// once, or minus a CUDA error.
+int resident_windows(int levels) {
+  int blocks = 0, sms = 0;
+  const cudaError_t err =
+      levels == 0 ? blocks_per_sm(win::w16::cftm_branch_w16_kernel, win::w16::NT,
+                                  win::w16::SMEM, blocks, sms)
+                  : blocks_per_sm(win::w64::cftm_branch_w64_kernel, win::w64::NT,
+                                  win::w64::SMEM, blocks, sms);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks * sms * (levels == 0 ? win::w16::NWARP : win::w64::NG);
+}
+
+cudaError_t launch_w16(const BranchArgs& a, cudaStream_t stream) {
+  if (!c256::aligned(a)) return cudaErrorMisalignedAddress;
+  int blocks = 0, sms = 0;
+  cudaError_t err = blocks_per_sm(win::w16::cftm_branch_w16_kernel, win::w16::NT,
+                                  win::w16::SMEM, blocks, sms);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorLaunchOutOfResources;
+  const long long nwin = (long long)a.B * (a.H / BLOCK) * (a.W / BLOCK);
+  const long long want = (nwin + win::w16::NWARP - 1) / win::w16::NWARP;
+  const int grid = (int)(want < (long long)blocks * sms ? want : (long long)blocks * sms);
+  win::w16::cftm_branch_w16_kernel<<<grid, win::w16::NT, win::w16::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_w64(const BranchArgs& a, cudaStream_t stream) {
+  if (!c256::aligned(a)) return cudaErrorMisalignedAddress;
+  int blocks = 0, sms = 0;
+  cudaError_t err = blocks_per_sm(win::w64::cftm_branch_w64_kernel, win::w64::NT,
+                                  win::w64::SMEM, blocks, sms);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorLaunchOutOfResources;
+  const long long nwin = (long long)a.B * (a.H / 2 / BLOCK) * (a.W / 2 / BLOCK);
+  const int grid = (int)(nwin < sms ? nwin : sms);
+  win::w64::cftm_branch_w64_kernel<<<grid, win::w64::NT, win::w64::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Which body a shape takes: 0 the general one, 1 the cluster body (C = 256),
+// 2 a window to a warp (C = 16), 3 a window to four warps (C = 64).
 inline int variant_of(int Cb, int levels) {
-  return levels == 2 && Cb == c256::CB ? 1 : 0;
+  if (Cb != c256::CB) return 0;
+  return levels == 2 ? 1 : levels == 0 ? 2 : levels == 1 ? 3 : 0;
 }
 
 template <int L>
 cudaError_t launch(const BranchArgs& a, cudaStream_t stream) {
-  if (variant_of(a.Cb, L)) return c256::launch(a, stream);
+  const int variant = variant_of(a.Cb, L);
+  if (variant == 1) return c256::launch(a, stream);
+  if (variant == 2) return launch_w16(a, stream);
+  if (variant == 3) return launch_w64(a, stream);
   const int S = 1 << L;
   const int C = a.Cb * S * S;
   const size_t smem = layout(C).total;
@@ -676,15 +758,19 @@ cudaError_t launch(const BranchArgs& a, cudaStream_t stream) {
 // Shared memory of one block of the general body at width C.
 extern "C" int m2t_cftm_branch_smem(int C) { return (int)layout(C).total; }
 
-// The body K1 / K1n launch for (Cb, levels): 1 the C = 256 cluster body
-// (shared memory c256::SMEM), 0 the general one.
+// The body K1 / K1n launch for (Cb, levels): 0 the general one, 1 the
+// C = 256 cluster body, 2 a window to a warp (C = 16), 3 a window to a group
+// of four warps (C = 64).
 extern "C" int m2t_cftm_branch_variant(int Cb, int levels) {
   return variant_of(Cb, levels);
 }
 
-// Clusters of the C = 256 body resident on the card at once (the waves of
-// the source note), or minus a CUDA error.
-extern "C" int m2t_cftm_branch_clusters() { return c256::resident_clusters(); }
+// Windows that the card holds at once at base width 16: of the w16 body
+// (levels 0), of the w64 body (levels 1), clusters of the C = 256 body
+// (levels 2); or minus a CUDA error.
+extern "C" int m2t_cftm_branch_resident(int levels) {
+  return levels == 2 ? c256::resident_clusters() : resident_windows(levels);
+}
 
 extern "C" int m2t_cftm_branch(const void* x, const void* xadd, const void* s,
                                const void* t, const void* w, const void* relh,

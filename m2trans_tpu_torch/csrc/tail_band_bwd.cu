@@ -8,14 +8,15 @@
 // dy (B, H, W, nf), dw0/db0, dw1/db1 (the permuted stage weights), dw3
 // (3, 3, nf, 3) and the spliced reflect-ring slices dlc/drc/dtop/dbot.
 //
-// One kernel, launched twice over the same 4x16 LR tiles:
-//   pass 0 recomputes the tile's pre-clamp outputs with K2's own code
-//     (tail_common.cuh, so the clip mask is K2's bit for bit) and writes
+// Two passes:
+//   pass 0 is K2's own kernel (m2t_tail_band_gm in tail_band.cu) run with
+//     the cotangent: it recomputes the pre-clamp outputs exactly as the
+//     forward did (so the clip mask is K2's bit for bit) and writes
 //     gm = g * [0 <= out <= rgb_range] (f32) — torch.clamp's and
 //     jnp.clip's gradient rule;
-//   pass 1, per tile and per chunk of 4 phase blocks: recomputes the
-//     chunk's phase band over the 6x18 halo (the forward's WMMA stage
-//     products), accumulates dw3 = sum ph * gm straight from K's structure
+//   pass 1, this file's kernel, per 4x16 LR tile and per chunk of 4 phase
+//     blocks: recomputes the chunk's phase band over the 6x18 halo (WMMA
+//     stage products, tail_common.cuh), accumulates dw3 = sum ph * gm straight from K's structure
 //     (no dense dK), forms d(phase band) for the LR pixels the tile owns by
 //     the transposed structured conv (a 3x3 gm halo suffices), routes the
 //     ring pixels' share to the edge gradients, and walks the GELU' and
@@ -28,7 +29,7 @@
 //
 // What bounds it on the card: pass 1's stage transposes (~5*nf*4nf MACs
 // per LR pixel and phase group at x4) and its shared memory (190,784 bytes
-// at nf = 64: K2's 109,888 plus the gm halo, one chunk of d(phase band) in
+// at nf = 64: the recompute's 109,888 plus the gm halo, one chunk of d(phase band) in
 // bf16, the tile's stage-0 rows and the stage-0 adjoint in f32), which
 // leaves one block per SM and little L1. Design: once the phase band is
 // consumed its buffer stages the chunk's stage weights (read from L2 in
@@ -44,6 +45,13 @@
 
 extern "C" int m2t_reduce_rows(const void* part, int n, long long len,
                                void* out, void* stream);
+extern "C" int m2t_tail_band_gm(const void* y, const void* w0, const void* b0,
+                                const void* w1, const void* b1, const void* w3,
+                                const void* lc, const void* rc, const void* top,
+                                const void* bot, void* out, const void* g,
+                                void* gm, int B, int H, int W, int nf, int scale,
+                                float rgb_range, void* stream);
+extern "C" int m2t_tail_band_smem(int nf, int scale);
 
 namespace {
 
@@ -107,7 +115,7 @@ __device__ __forceinline__ void block_phase(int blk, int s, int& pi, int& pj) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-tail_band_bwd_kernel(BwdArgs a, int pass) {
+tail_band_bwd_kernel(BwdArgs a) {
   const TailArgs& f = a.f;
   const int nf = f.nf, s = f.scale, P = s * s, cp = P * nf;
   const int cp0 = s == 4 ? 4 * nf : cp;
@@ -119,28 +127,6 @@ tail_band_bwd_kernel(BwdArgs a, int pass) {
 
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout lay = layout(nf);
-
-  if (pass == 0) {
-    const int po = tid % (TR * TW), qg = tid / (TR * TW);
-    const int ty = po / TW, tx = po % TW;
-    float acc[MAX_Q][3];
-    tile_outputs(f, lay, smem, b, r0, c0, ty, tx, qg, acc);
-    const int Y = r0 + ty, X = c0 + tx;
-    if (Y < f.H && X < f.W) {
-      const size_t o = (((size_t)b * f.H + Y) * f.W + X) * P * 3;
-#pragma unroll
-      for (int m = 0; m < MAX_Q; ++m) {
-        const int q = qg + QGROUPS * m;
-        if (q >= P) break;
-        for (int c = 0; c < 3; ++c) {
-          const float v = acc[m][c];
-          const bool pass_grad = v >= 0.f && v <= f.rgb_range;
-          a.gm[o + q * 3 + c] = pass_grad ? ldf(a.g + o + q * 3 + c) : 0.f;
-        }
-      }
-    }
-    return;
-  }
 
   const BwdLayout bl = bwd_layout(nf);
   const bf16* ys = reinterpret_cast<const bf16*>(smem);
@@ -420,9 +406,10 @@ tail_band_bwd_kernel(BwdArgs a, int pass) {
 
 }  // namespace
 
-// Shared memory of pass 0 (which = 0) and pass 1 (which = 1) at n_feats nf.
+// Shared memory of pass 0 (which = 0: K2's kernel, at x4, its largest) and
+// pass 1 (which = 1) at n_feats nf.
 extern "C" int m2t_tail_band_bwd_smem(int nf, int which) {
-  return (int)(which == 0 ? layout(nf).total : bwd_layout(nf).total);
+  return which == 0 ? m2t_tail_band_smem(nf, 4) : (int)bwd_layout(nf).total;
 }
 
 extern "C" int m2t_tail_band_bwd(
@@ -459,19 +446,20 @@ extern "C" int m2t_tail_band_bwd(
   a.dtop = static_cast<float*>(dtop);
   a.dbot = static_cast<float*>(dbot);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t s0 = layout(nf).total, s1 = bwd_layout(nf).total;
+  const size_t s1 = bwd_layout(nf).total;
+  int code = m2t_tail_band_gm(y, w0, b0, w1, b1, w3, lc, rc, top, bot, nullptr,
+                              g, gm, B, H, W, nf, scale, rgb_range, stream);
+  if (code) return code;
   cudaError_t err = cudaFuncSetAttribute(
       tail_band_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s1);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((H + TR - 1) / TR) * ((W + TW - 1) / TW);
   dim3 grid(tiles, B);
-  tail_band_bwd_kernel<<<grid, THREADS, s0, st>>>(a, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  tail_band_bwd_kernel<<<grid, THREADS, s1, st>>>(a, 1);
+  tail_band_bwd_kernel<<<grid, THREADS, s1, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int cp0 = scale == 4 ? 4 * nf : scale * scale * nf;
-  int code = m2t_reduce_rows(part0, tiles * B, (long long)nf * cp0 + cp0,
+  code = m2t_reduce_rows(part0, tiles * B, (long long)nf * cp0 + cp0,
                              dw0b0, stream);
   if (code) return code;
   if (scale == 4) {

@@ -1,8 +1,9 @@
 // Shared pieces of K2 (tail_band.cu, forward) and K2b (tail_band_bwd.cu,
-// its VJP): constants, the shared-memory layout of one 4x16 LR tile, the
-// stage products and the structured phase conv, so that the backward
-// recomputes exactly what the forward computed (the clip mask depends on
-// it bit for bit).
+// its VJP): the operand struct, the exact GELU, the phase-block and tap
+// maps, and K2b's recompute of the phase band over the 6x18 halo of one of
+// its 4x16 LR tiles (stage products on WMMA, one 4-block chunk at a time).
+// The pre-clamp outputs, and with them K2b's clip mask, come from K2's own
+// kernel (m2t_tail_band_gm in tail_band.cu).
 
 #pragma once
 
@@ -23,8 +24,6 @@ constexpr int NPIX = (TR + 2) * HW_;   // 108 halo pixels
 constexpr int NP = 112;                // padded to the 16-row MMA tile
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int QGROUPS = THREADS / (TR * TW);  // phase groups per pixel
-constexpr int MAX_Q = 16 / QGROUPS;             // phases per thread at x4
 
 // Row strides in shared memory are padded by 16 bytes, so that the rows of
 // an MMA fragment, and the 16-byte loads of neighbouring pixels, fall on
@@ -219,68 +218,6 @@ __device__ __forceinline__ int tap_source(int i, int j, int dr, int dc, int s,
   yo = ii < 0 ? -1 : (ii >= s ? 1 : 0);
   xo = jj < 0 ? -1 : (jj >= s ? 1 : 0);
   return phase_block(ii - yo * s, jj - xo * s, s);
-}
-
-// The structured 3x3 phase conv: contributions of chunk g's blocks to this
-// thread's output pixel (ty, tx) and phases q = qg + QGROUPS*m.
-__device__ __forceinline__ void conv_chunk(const TailArgs& a, const Layout& lay,
-                           const unsigned char* smem, int g, int ty, int tx,
-                           int qg, float (*acc)[3]) {
-  const int nf = a.nf, s = a.scale, P = s * s;
-  const int nblk = min(4, P - 4 * g), ldph = ph_ld(nf);
-  const bf16* ph = reinterpret_cast<const bf16*>(smem + lay.ph);
-  const float* w3 = reinterpret_cast<const float*>(smem + lay.w3);
-#pragma unroll
-  for (int m = 0; m < MAX_Q; ++m) {
-    const int q = qg + QGROUPS * m;
-    if (q >= P) break;
-    const int i = q / s, j = q % s;
-    for (int dr = -1; dr <= 1; ++dr) {
-      for (int dc = -1; dc <= 1; ++dc) {
-        int yo, xo;
-        const int src = tap_source(i, j, dr, dc, s, yo, xo) - 4 * g;
-        if (src < 0 || src >= nblk) continue;
-        const bf16* v =
-            ph + ((ty + 1 + yo) * HW_ + tx + 1 + xo) * ldph + src * nf;
-        const float* w = w3 + ((dr + 1) * 3 + dc + 1) * nf * 3;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-        for (int c = 0; c < nf; c += 8) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(v + c);
-          const __nv_bfloat162* h2 =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float2 f = __bfloat1622float2(h2[u]);
-            const float* wc = w + (c + 2 * u) * 3;
-            s0 += f.x * wc[0] + f.y * wc[3];
-            s1 += f.x * wc[1] + f.y * wc[4];
-            s2 += f.x * wc[2] + f.y * wc[5];
-          }
-        }
-        acc[m][0] += s0;
-        acc[m][1] += s1;
-        acc[m][2] += s2;
-      }
-    }
-  }
-}
-
-// The tile's pre-clamp outputs: this thread's pixel (ty, tx) and phases
-// q = qg + QGROUPS*m, into acc.
-__device__ __forceinline__ void tile_outputs(const TailArgs& a, const Layout& lay,
-                             unsigned char* smem, int b, int r0, int c0,
-                             int ty, int tx, int qg, float (*acc)[3]) {
-  const int P = a.scale * a.scale;
-  tile_load(a, lay, smem, b, r0, c0);
-#pragma unroll
-  for (int m = 0; m < MAX_Q; ++m) acc[m][0] = acc[m][1] = acc[m][2] = 0.f;
-  __syncthreads();
-  for (int g = 0; g < (P + 3) / 4; ++g) {
-    phase_chunk(a, lay, smem, g, b);
-    __syncthreads();
-    conv_chunk(a, lay, smem, g, ty, tx, qg, acc);
-    __syncthreads();
-  }
 }
 
 }  // namespace m2t_tail

@@ -51,7 +51,7 @@ SIGNATURES = {
                         F, P],                     # r, stream
     "m2t_cftm_branch_smem": [I],
     "m2t_cftm_branch_variant": [I, I],             # Cb levels
-    "m2t_cftm_branch_clusters": [],
+    "m2t_cftm_branch_resident": [I],               # levels (base width 16)
     "m2t_halo_attn_qkv": [P, P, P, P, P,          # x w relh relw out
                           I, I, I, I, I,           # B H W Cb levels
                           LL, LL, LL, P],          # x strides b, h, w; stream
@@ -66,7 +66,8 @@ SIGNATURES = {
     "m2t_tail_band": [P, P, P, P, P, P,            # y w0 b0 w1 b1 w3
                       P, P, P, P, P,               # lc rc top bot out
                       I, I, I, I, I, F, P],        # B H W nf scale rgb stream
-    "m2t_tail_band_smem": [I],
+    "m2t_tail_band_smem": [I, I],                  # nf scale
+    "m2t_tail_band_tile": [I],                     # 0 rows, 1 columns
     "m2t_tail_band_bwd": [P, P, P, P, P, P,        # y w0 b0 w1 b1 w3
                           P, P, P, P, P,           # lc rc top bot g
                           P, P, P, P,              # gm part0 part1 part3

@@ -8,17 +8,29 @@ Replaces the TPU kernels behind ``cftm_branch_fused``
 ``_packed_cascade_kernel`` via ``packed_cascade_core``,
 ``_packed_front_kernel`` via ``packed_front_core``). Row bands, column
 slabs and lane packing were TPU choices; on the card they are one source,
-``csrc/cftm_branch.cu``, with two bodies taken by shape alone
-(:func:`cftm_branch_variant` names the one a shape launches). At C = Cb *
-4**L = 256 with Cb = 16 (L = 2 on the flagship path) operations and the
-room for them bind: the 384 KB weight exceeds a block's shared memory and a
-batch has fewer windows than the card has SMs, so one window is split over
-a thread-block cluster of four CTAs (``cluster_*`` below state the split on
-tensors), each streaming its 256x192 weight slice through a ``cp.async``
-ring into ``mma.sync`` + ``ldmatrix`` products and exchanging partial
-logits, probabilities and ``P v`` through distributed shared memory. Every
-other shape takes the general body, one block per window on WMMA. The
-header has the detail, the waves and the reason ``wgmma`` was not taken.
+``csrc/cftm_branch.cu``, with four bodies taken by shape alone
+(:func:`cftm_branch_variant` names the one a shape launches). At base width
+16, the flagship's:
+
+- L = 0 (C = 16) and L = 1 (C = 64), ``csrc/cftm_window.cuh``: a chain of
+  latencies bound them, not operations or bytes, so a window belongs to one
+  warp (``w16_warp``) or to a group of four warps (``w64_warpgroup``) with
+  no block barrier inside a window; 16-byte loads and stores; projection,
+  ``q k^T`` and ``P v`` on ``mma.sync``; the softmax on the accumulator
+  registers, P fed to ``P v`` as A fragments, so neither the f32 logits nor
+  P visit shared memory (:func:`register_softmax_window` and
+  :func:`window_branch` state that arithmetic on tensors);
+- L = 2 (C = 256), ``c256_cluster4``: operations and the room for them
+  bind: the 384 KB weight exceeds a block's shared memory and a batch has
+  fewer windows than the card has SMs, so one window is split over a
+  thread-block cluster of four CTAs (``cluster_*`` below state the split on
+  tensors), each streaming its 256x192 weight slice through a ``cp.async``
+  ring into ``mma.sync`` + ``ldmatrix`` products and exchanging partial
+  logits, probabilities and ``P v`` through distributed shared memory.
+
+Every other base width takes the general body, one block per window on
+WMMA. The headers have the detail, the waves and the reason ``wgmma`` was
+not taken.
 
 K1b, its VJP (``csrc/cftm_branch_bwd.cu``), replaces the TPU backward
 kernels of ``cftm_branch_fused``'s custom_vjp (halo_attn.py
@@ -126,7 +138,8 @@ def halo_attention_qkv_plain(x: torch.Tensor, w_qkv: torch.Tensor,
 # of the cluster works on; the kernel indexes the (C, 3C) weight and the
 # rel-pos tables in place, so nothing is rearranged on the host.
 CLUSTER_SPLIT = 4
-_VARIANTS = ("general", "c256_cluster4")
+_VARIANTS = ("general", "c256_cluster4", "w16_warp", "w64_warpgroup")
+NQ, NK, NKP = 64, 100, 112  # queries, keys and padded key slots of a window
 
 
 def cluster_columns(c: int, split: int = CLUSTER_SPLIT) -> torch.Tensor:
@@ -195,6 +208,133 @@ def cftm_branch_variant(cb: int, levels: int) -> str:
     return _VARIANTS[build.lib().m2t_cftm_branch_variant(cb, levels)]
 
 
+def variant_by_shape(cb: int, levels: int) -> str:
+    """The same choice stated here, for code that runs without the library
+    (the sources' ``variant_of``): base width 16 has a body of its own per
+    level, every other width the general one."""
+    if cb != 16 or levels not in (0, 1, 2):
+        return "general"
+    return ("w16_warp", "w64_warpgroup", "c256_cluster4")[levels]
+
+
+# The bodies of csrc/cftm_window.cuh keep a window's 16 x 112 logits of one
+# warp in the accumulator registers of seven pairs of m16n8 tiles. The three
+# functions below state that layout and the softmax on it.
+
+
+def window_slots(block: int = 8) -> torch.Tensor:
+    """(100, 2) int64: (row, col) in the 10x10 key window of every slot, in
+    the kernels' order (``win_coord``): the 8x8 query block row-major, then
+    the top and bottom halo rows, the left and right halo columns."""
+    q = [(1 + i // block, 1 + i % block) for i in range(block * block)]
+    ring = ([(0, c) for c in range(10)] + [(9, c) for c in range(10)]
+            + [(1 + r, 0) for r in range(block)] + [(1 + r, 9) for r in range(block)])
+    return torch.tensor(q + ring)
+
+
+def mma_accumulator_layout() -> torch.Tensor:
+    """(32 lanes, 4 registers, 2) int64: (row, column) in a 16x8 accumulator
+    tile of ``mma.m16n8k16`` that each register of each lane holds."""
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(4)[None, :]
+    return torch.stack([lane // 4 + 8 * (e // 2), 2 * (lane % 4) + e % 2], dim=-1)
+
+
+def mma_a_layout() -> torch.Tensor:
+    """(32 lanes, 4 registers, 2 halves, 2) int64: (row, k) in the 16x16 A
+    operand of each bf16 half of each register of each lane."""
+    lane = torch.arange(32)[:, None, None]
+    r = torch.arange(4)[None, :, None]
+    h = torch.arange(2)[None, None, :]
+    return torch.stack([(lane // 4 + 8 * (r % 2)).expand(32, 4, 2),
+                        2 * (lane % 4) + 8 * (r // 2) + h], dim=-1)
+
+
+def register_softmax_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dtype=torch.bfloat16) -> torch.Tensor:
+    """One window's ``softmax(q k^T) v`` as the bodies of cftm_window.cuh
+    compute it. q: (64, C) (scaled), k, v: (112, C) in slot order, pad rows
+    100..111 anything finite. Each warp owns 16 query rows; its logits lie
+    in 14 accumulator tiles (:func:`mma_accumulator_layout`), pad slots are
+    masked to -inf, the row max and sum are reduced over the four lanes of a
+    quad, and ``dtype(P)`` goes to ``P v`` as A fragments taken from the same
+    registers (tiles 2*kk and 2*kk + 1 are the k16 step kk). Returns the f32
+    (64, C) result."""
+    cl, al = mma_accumulator_layout(), mma_a_layout()
+    out = []
+    for w in range(NQ // 16):
+        logits = q[16 * w:16 * w + 16].float() @ k.float().T  # (16, 112)
+        # registers: s[lane, nt, e] = logits[row, nt*8 + col]
+        key = torch.arange(NKP // 8)[None, :, None] * 8 + cl[:, None, :, 1]
+        row = cl[:, None, :, 0].expand(32, NKP // 8, 4)
+        s = logits[row, key]
+        s = torch.where(key >= NK, torch.full_like(s, float("-inf")), s)
+        quad = torch.arange(32) // 4
+        m = torch.full((8, 2), float("-inf"))
+        tot = torch.zeros(8, 2)
+        for hr in range(2):  # rows g8 and g8 + 8: registers 2*hr, 2*hr + 1
+            own = s[:, :, 2 * hr:2 * hr + 2].reshape(32, -1)
+            m[:, hr] = own.max(dim=1).values.reshape(8, 4).max(dim=1).values
+        p = torch.exp(s - m[quad][:, None, :].repeat_interleave(2, dim=-1))
+        for hr in range(2):
+            own = p[:, :, 2 * hr:2 * hr + 2].reshape(32, -1)
+            tot[:, hr] = own.sum(dim=1).reshape(8, 4).sum(dim=1)
+        p = (p / tot[quad][:, None, :].repeat_interleave(2, dim=-1)).to(dtype)
+        # A fragments of k16 step kk: registers (2*h + hr) <- tile 2*kk + h,
+        # accumulator registers (2*hr, 2*hr + 1); rebuild P from them
+        pm = torch.zeros(16, NKP)
+        for kk in range(NKP // 16):
+            for h in range(2):
+                for hr in range(2):
+                    r = 2 * h + hr
+                    for half in range(2):
+                        rows, ks = al[:, r, half, 0], al[:, r, half, 1]
+                        pm[rows, 16 * kk + ks] = p[:, 2 * kk + h, 2 * hr + half].float()
+        out.append(pm @ v.to(dtype).float())
+    return torch.cat(out)
+
+
+def window_branch(x: torch.Tensor, w_qkv: torch.Tensor, rel_h: torch.Tensor,
+                  rel_w: torch.Tensor, s=None, t=None, *, x_add=None,
+                  r: float = 0.5, levels: int = 0) -> torch.Tensor:
+    """K1 (K1n with ``s`` None) as the bodies of cftm_window.cuh cut it,
+    rounding where they round: per 8x8 coarse query block the 112 padded
+    slots of its window (zero outside the frame and in the pad rows), the
+    projection with rel-pos added to the 100 real keys,
+    :func:`register_softmax_window`, the inverse transform and the residual
+    from the kept z."""
+    dt = x.dtype
+    z = x.float()
+    if s is not None:
+        z = z * s.float()[:, None, None, :] + t.float()[:, None, None, :]
+        if x_add is not None:
+            z = z + r * x_add.float()
+    z = z.to(dt)
+    zc = z.float()
+    for _ in range(levels):
+        zc = haar_dwt(zc)
+    zc = zc.to(dt)
+    bsz, hc, wc, c = zc.shape
+    zp = torch.nn.functional.pad(zc, (0, 0, 1, 1, 1, 1))
+    slots = window_slots()
+    rel = torch.cat([rel_h.float()[slots[:, 0]], rel_w.float()[slots[:, 1]]], dim=-1)
+    o = torch.zeros(bsz, hc, wc, c)
+    for b in range(bsz):
+        for bi in range(hc // 8):
+            for bj in range(wc // 8):
+                rows = torch.zeros(NKP, c, dtype=dt)
+                rows[:NK] = zp[b, 8 * bi + slots[:, 0], 8 * bj + slots[:, 1]]
+                qkv = rows.float() @ w_qkv.float()
+                q = (qkv[:NQ, :c] * c ** -0.5).to(dt)
+                k = qkv[:, c:2 * c]
+                k[:NK] = k[:NK] + rel
+                ov = register_softmax_window(q, k.to(dt), qkv[:, 2 * c:].to(dt), dt)
+                o[b, 8 * bi:8 * bi + 8, 8 * bj:8 * bj + 8] = ov.reshape(8, 8, c)
+    for _ in range(levels):
+        o = haar_iwt(o)
+    return (o + z.float()).to(dt) if s is not None else o.to(dt)
+
+
 def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
     """Raise unless the operands are what K1, K1b and K1n (``s`` and ``t``
     None) take."""
@@ -234,7 +374,7 @@ def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
              "x_add must be a bf16 channel slice like x")
         tensors.append(x_add)
     need(all(v.device == dev for v in tensors), "all tensors on one device")
-    if levels == 2 and cb == 16:  # the cluster body reads x with vector loads
+    if cb == 16:  # the bodies of base width 16 read x with vector loads
         for name, v in (("x", x), ("x_add", x_add)):
             need(v is None or (v.data_ptr() % 16 == 0 and v.stride(2) % 8 == 0),
                  f"{name} must be 16-byte aligned with a pixel stride that is "

@@ -5,14 +5,22 @@ Replaces the TPU kernel m2trans_tpu/ops/pallas/tail_band.py ``_kernel``
 (launched by ``tail_band_fused``, entered through ``tail_band_apply``).
 The kernel, ``csrc/tail_band.cu``, computes the stage products, exact GELU,
 the 3x3 phase-space conv with the HR reflect ring spliced in, and the
-clamp, per 4x16 LR tile; its header says what bounds it on the card and
-how its design answers that. The weight prep (``stage_weights``),
+clamp: a persistent grid of one block an SM walks 8x16 LR tiles
+(:func:`tail_tile_walk`), the weights staged in shared memory once per
+block, each warp taking 16 halo pixels through both stages in registers
+(``mma.sync``), and the phase conv contracted first and gathered after
+(:func:`phase_conv_contract_gather` states that arithmetic on tensors, and
+:func:`tail_band_contract_gather` the whole kernel's); its header says what
+bounds it on the card and how the design answers that. The weight prep
+(``stage_weights``),
 the 1-px reflect-ring slices (``phase_edges``) and the final depth-to-space
 stay plain torch, as they stayed XLA around the TPU kernel.
 
 K2b, its VJP (``csrc/tail_band_bwd.cu``), replaces the four TPU kernels of
 ``tail_band_bwd_fused`` (``_bwd_recompute_kernel``, ``_bwd_dk_kernel``,
-``_bwd_dph_kernel``, ``_bwd_stage_kernel``). :class:`TailBandFn` ties the
+``_bwd_dph_kernel``, ``_bwd_stage_kernel``); its clip mask comes from K2's
+own kernel run with the cotangent, so the two agree bit for bit.
+:class:`TailBandFn` ties the
 two together for autograd: K2 forward, K2b backward, which returns the
 gradients of K2's ten operands; autograd carries them on through the plain
 ``stage_weights``, ``last_conv_weight`` and ``phase_edges`` (the JAX
@@ -34,6 +42,7 @@ from m2trans_tpu_torch.ops.conv import gelu_exact
 from m2trans_tpu_torch.ops.kernels import build
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle_fast
 from m2trans_tpu_torch.ops.tail_phase import (
+    _phase_layout,
     expand_phase_kernel,
     last_conv_weight,
     phase_edges,
@@ -41,14 +50,13 @@ from m2trans_tpu_torch.ops.tail_phase import (
 )
 
 
-def tail_band_plain(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
-                    rgb_range: float) -> torch.Tensor:
-    """Plain PyTorch version of K2, rounding where the kernel rounds.
+TILE = (8, 16)  # LR rows, columns of one step of K2's walk (csrc/tail_band.cu)
 
-    y: (B, H, W, nf); w0/b0, w1/b1: ps-permuted stage weights (I, O)/(O,);
-    w3: HWIO (3, 3, nf, 3); lc, rc: (B, H+2, P*nf) f32 pad columns by
-    padded row; top, bot: (B, W+2, P*nf) f32 pad rows. Returns the clamped
-    (B, H, W, P*3) phase planes in y's dtype."""
+
+def _phase_band(y, w0, b0, w1, b1, lc, rc, top, bot, scale):
+    """The (B, H+2, W+2, P*nf) phase band with the reflect ring spliced in,
+    rounded to y's dtype where K2 rounds (h before stage 1, the band before
+    the conv)."""
     dt = y.dtype
     bsz, h, w, nf = y.shape
     h0 = gelu_exact(y.float() @ w0.float() + b0.float())
@@ -62,9 +70,123 @@ def tail_band_plain(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
     ph[:, 1:h + 1, w + 1] = rc[:, 1:h + 1]
     ph[:, 0] = top
     ph[:, h + 1] = bot
+    return ph.to(dt)
+
+
+def tail_band_plain(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *, scale: int,
+                    rgb_range: float) -> torch.Tensor:
+    """Plain PyTorch version of K2, rounding where the kernel rounds.
+
+    y: (B, H, W, nf); w0/b0, w1/b1: ps-permuted stage weights (I, O)/(O,);
+    w3: HWIO (3, 3, nf, 3); lc, rc: (B, H+2, P*nf) f32 pad columns by
+    padded row; top, bot: (B, W+2, P*nf) f32 pad rows. Returns the clamped
+    (B, H, W, P*3) phase planes in y's dtype."""
+    dt = y.dtype
+    ph = _phase_band(y, w0, b0, w1, b1, lc, rc, top, bot, scale)
     K = expand_phase_kernel(w3, scale).float()
-    out = F.conv2d(ph.to(dt).float().permute(0, 3, 1, 2), K.permute(3, 2, 0, 1))
+    out = F.conv2d(ph.float().permute(0, 3, 1, 2), K.permute(3, 2, 0, 1))
     return out.clamp(0.0, rgb_range).to(dt).permute(0, 2, 3, 1).contiguous()
+
+
+def tail_tile_walk(h: int, w: int, tile=TILE):
+    """The LR tiles K2's persistent grid walks over one (h, w) frame, in its
+    order: ``(r0, c0, rows, cols)``, rows and cols cut at the frame."""
+    th, tw = tile
+    return [(r0, c0, min(th, h - r0), min(tw, w - c0))
+            for r0 in range(0, h, th) for c0 in range(0, w, tw)]
+
+
+def halo_slots(tile=TILE):
+    """The order in which K2 keeps the (rows+2) x (cols+2) halo pixels of a
+    tile, as (row, column) in the halo: the tile's own pixels row-major, then
+    the ring by kind: top row, bottom row, left column, right column, the
+    four corners. (K2 pads them to 12 row tiles of 16.)"""
+    th, tw = tile
+    return ([(1 + r, 1 + c) for r in range(th) for c in range(tw)]
+            + [(0, 1 + c) for c in range(tw)] + [(th + 1, 1 + c) for c in range(tw)]
+            + [(1 + r, 0) for r in range(th)] + [(1 + r, tw + 1) for r in range(th)]
+            + [(r, c) for r in (0, th + 1) for c in (0, tw + 1)])
+
+
+def halo_needed_blocks(scale: int, tile=TILE):
+    """For every slot of :func:`halo_slots` the set of phase blocks that some
+    output pixel of the tile reads from it: all of a tile pixel's, of a ring
+    pixel only the blocks whose phase row / column faces the tile. K2 skips
+    the rest (products and GELU)."""
+    th, tw = tile
+    s, lay = scale, _phase_layout(scale)
+    out = []
+    for hy, hx in halo_slots(tile):
+        rows = range(s) if 1 <= hy <= th else ([s - 1] if hy == 0 else [0])
+        cols = range(s) if 1 <= hx <= tw else ([s - 1] if hx == 0 else [0])
+        out.append({int(lay[pi, pj]) for pi in rows for pj in cols})
+    return out
+
+
+def phase_tap_table(scale: int):
+    """For every output phase q = i*s + j the nine terms of its 3x3 HR conv
+    in K2's order of summation (group of 4 source blocks, then tap):
+    ``(tap, block, yo, xo)``: tap ``(dr+1)*3 + dc+1`` reads phase block
+    ``block`` of the LR neighbour at offset (yo, xo)."""
+    s, lay = scale, _phase_layout(scale)
+    table = []
+    for q in range(s * s):
+        i, j = divmod(q, s)
+        terms = []
+        for tap in range(9):
+            ii, jj = i + tap // 3 - 1, j + tap % 3 - 1
+            terms.append((tap, int(lay[ii % s, jj % s]), ii // s, jj // s))
+        table.append(sorted(terms, key=lambda t: (t[1] // 4, t[0])))
+    return table
+
+
+def phase_conv_contract_gather(ph: torch.Tensor, w3: torch.Tensor,
+                               scale: int) -> torch.Tensor:
+    """The 3x3 phase-space conv as K2 computes it. ``ph``: a (..., R+2, S+2,
+    P*nf) band with its 1-px ring; contract first, ``T[pix, blk, tap, c] =
+    ph[pix, blk, :] . w3[tap, :, c]`` in f32 (one dense product per phase
+    block), then every output phase gathers its nine T values of the
+    neighbouring pixels in the order of :func:`phase_tap_table`. Returns
+    the f32 (..., R, S, P*3) pre-clamp outputs."""
+    P, nf = scale * scale, w3.shape[2]
+    r, c = ph.shape[-3] - 2, ph.shape[-2] - 2
+    blocks = ph.float().reshape(*ph.shape[:-1], P, nf)
+    T = torch.einsum("...pc,tcd->...ptd", blocks, w3.float().reshape(9, nf, 3))
+    out = []
+    for terms in phase_tap_table(scale):
+        acc = torch.zeros(*ph.shape[:-3], r, c, 3)
+        for tap, blk, yo, xo in terms:
+            acc = acc + T[..., 1 + yo:1 + yo + r, 1 + xo:1 + xo + c, blk, tap, :]
+        out.append(acc)
+    return torch.stack(out, dim=-2).reshape(*ph.shape[:-3], r, c, P * 3)
+
+
+def tail_band_contract_gather(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *,
+                              scale: int, rgb_range: float,
+                              tile=TILE) -> torch.Tensor:
+    """K2 as its kernel cuts it, on tensors: per tile of
+    :func:`tail_tile_walk` the halo of the phase band (ring on the frame
+    border, zero beyond it), the contraction with w3 and the gather, the
+    clamp; pixels beyond the frame are dropped."""
+    bsz, h, w, _ = y.shape
+    ph = _phase_band(y, w0, b0, w1, b1, lc, rc, top, bot, scale)
+    th, tw = tile
+    ph = F.pad(ph, (0, 0, 0, tw, 0, th))  # room for the last tiles' halos
+    out = torch.empty(bsz, h, w, scale * scale * 3, dtype=y.dtype)
+    nf, P = y.shape[-1], scale * scale
+    live = torch.zeros(th + 2, tw + 2, P, 1, dtype=torch.bool)
+    for (hy, hx), blocks in zip(halo_slots(tile), halo_needed_blocks(scale, tile)):
+        live[hy, hx, sorted(blocks)] = True
+    for r0, c0, rows, cols in tail_tile_walk(h, w, tile):
+        halo = ph[:, r0:r0 + th + 2, c0:c0 + tw + 2]
+        # blocks no output of the tile reads are never computed: NaN them to
+        # show that the gather leaves them alone
+        halo = torch.where(live, halo.reshape(bsz, th + 2, tw + 2, P, nf),
+                           torch.full((), float("nan"), dtype=halo.dtype)
+                           ).reshape(halo.shape)
+        o = phase_conv_contract_gather(halo, w3, scale)[:, :rows, :cols]
+        out[:, r0:r0 + rows, c0:c0 + cols] = o.clamp(0.0, rgb_range).to(y.dtype)
+    return out
 
 
 def _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale):
@@ -78,7 +200,8 @@ def _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale):
             raise ValueError(f"tail_band kernel: {msg}")
 
     need(scale in (2, 3, 4), f"scale must be 2, 3 or 4, got {scale}")
-    need(nf % 16 == 0, f"n_feats must be a multiple of 16, got {nf}")
+    need(nf % 16 == 0 and 16 <= nf <= 64,
+         f"n_feats must be a multiple of 16, at most 64, got {nf}")
     shapes = {"y": (y, (bsz, h, w, nf), torch.bfloat16),
               "w0": (w0, (nf, cp0), torch.bfloat16),
               "b0": (b0, (cp0,), torch.bfloat16),
@@ -100,9 +223,9 @@ def _launch(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale, rgb_range):
     _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale)
     bsz, h, w, nf = y.shape
     lib = build.lib()
-    if lib.m2t_tail_band_smem(nf) > build.MAX_SMEM:
-        raise ValueError(f"tail_band kernel: n_feats={nf} needs more shared "
-                         "memory than a block has")
+    if lib.m2t_tail_band_smem(nf, scale) > build.MAX_SMEM:
+        raise ValueError(f"tail_band kernel: n_feats={nf} at x{scale} needs "
+                         "more shared memory than a block has")
     out = torch.empty((bsz, h, w, scale * scale * 3), dtype=y.dtype,
                       device=y.device)
     code = lib.m2t_tail_band(
@@ -139,8 +262,6 @@ def tail_band_bwd(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *, scale: int,
     bsz, h, w, nf = y.shape
     P = scale * scale
     cp, cp0 = P * nf, (4 * nf if scale == 4 else P * nf)
-    if nf > 64:
-        raise ValueError(f"tail_band_bwd kernel: n_feats must be <= 64, got {nf}")
     if tuple(g.shape) != (bsz, h, w, P * 3) or g.device != y.device:
         raise ValueError(f"tail_band_bwd: g {tuple(g.shape)} on {g.device} != "
                          f"{(bsz, h, w, P * 3)} on {y.device}")

@@ -14,8 +14,9 @@ machine need not have). Tolerances are those of the CPU tests: K1 max
 bound of their gradient tests); K3 ``max|a - b| <= max(2e-3, 2e-2 *
 max|b|)`` (it differs from its plain version in the f32 order of the tap
 sums), its gradients to the same bound; K1n as K1; K4 exactly. K1's
-cluster body (L = 2 at base width 16) and K3's persistent grid have cases
-of their own at shapes that do not fill their rounds.
+bodies of base width 16 (a window to a warp at L = 0, to four warps at
+L = 1, to a cluster at L = 2), K2's 8x16 tile walk and K3's persistent grid
+have cases of their own at shapes that do not fill their rounds or tiles.
 """
 
 import numpy as np
@@ -27,7 +28,7 @@ from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.benchmark import BenchmarkDataset
 from m2trans_tpu_torch.models import m2trans as port_model
 from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans, m2trans_apply
-from m2trans_tpu_torch.ops.kernels import relayout
+from m2trans_tpu_torch.ops.kernels import build, relayout
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv, ff_conv_plain, ff_weight_hwio
 from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch,
@@ -35,14 +36,17 @@ from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch_plain,
     cftm_branch_plain_vjp,
     cftm_branch_variant,
+    variant_by_shape,
     halo_attention_qkv,
     halo_attention_qkv_plain,
 )
 from m2trans_tpu_torch.ops.kernels.tail_band import (
+    TILE,
     tail_band_apply,
     tail_band_bwd,
     tail_band_fused,
     tail_band_operands,
+    tail_band_plain,
     tail_band_plain_vjp,
 )
 from m2trans_tpu_torch.train.evaluate import evaluate_dataset
@@ -90,7 +94,8 @@ def test_k1_cluster_body_matches_plain(dev, shape, mode):
     over a cluster of four CTAs: one window alone, several windows and
     images, with and without the cascade add, and as K1n."""
     assert cftm_branch_variant(16, 2) == "c256_cluster4"
-    assert cftm_branch_variant(16, 1) == cftm_branch_variant(4, 2) == "general"
+    assert cftm_branch_variant(16, 1) == "w64_warpgroup"
+    assert cftm_branch_variant(4, 2) == "general"
     rng = np.random.default_rng(shape[1] + len(mode))
     bsz, h, w = shape
     body = _randn(rng, (bsz, h, w, 64), dtype=torch.bfloat16)
@@ -115,6 +120,75 @@ def test_k1_cluster_body_matches_plain(dev, shape, mode):
         assert cftm_branch.launches == n0 + 1
     d = (got.float().cpu() - want.float()).abs()
     assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 8), (2, 64, 96), (3, 96, 32)])
+@pytest.mark.parametrize("mode", ["affine", "affine+add", "bare"])
+@pytest.mark.parametrize("levels", [0, 1])
+def test_k1_window_bodies_match_plain(dev, levels, shape, mode):
+    """L = 0 and L = 1 at base width 16 run the bodies that give a window to
+    a warp and to a group of four warps: one window alone, several windows
+    and images, with and without the cascade add, and as K1n."""
+    assert cftm_branch_variant(16, levels) == ("w16_warp", "w64_warpgroup")[levels]
+    rng = np.random.default_rng(shape[1] + len(mode) + levels)
+    bsz, h, w = shape[0], shape[1] * 2 ** levels, shape[2] * 2 ** levels
+    c = 16 * 4 ** levels
+    body = _randn(rng, (bsz, h, w, 64), dtype=torch.bfloat16)
+    wq = _randn(rng, (c, 3 * c), c ** -0.5, torch.bfloat16)
+    rel_h, rel_w = _randn(rng, (10, c // 2)), _randn(rng, (10, c // 2))
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, (bsz, 16)).astype(np.float32))
+    t = _randn(rng, (bsz, 16), 0.2)
+    add = _randn(rng, (bsz, h, w, 16), dtype=torch.bfloat16)
+    x, xd = body[..., 48:64], body.to(dev)[..., 48:64]
+    if mode == "bare":
+        want = halo_attention_qkv_plain(x, wq, rel_h, rel_w, levels=levels)
+        got = halo_attention_qkv(xd, wq.to(dev), rel_h.to(dev), rel_w.to(dev),
+                                 levels=levels)
+    else:
+        x_add = add if mode == "affine+add" else None
+        want = cftm_branch_plain(x, wq, rel_h, rel_w, s, t, x_add=x_add, levels=levels)
+        n0 = cftm_branch.launches
+        got = cftm_branch(xd, wq.to(dev), rel_h.to(dev), rel_w.to(dev), s.to(dev),
+                          t.to(dev), x_add=None if x_add is None else x_add.to(dev),
+                          levels=levels)
+        assert cftm_branch.launches == n0 + 1
+    d = (got.float().cpu() - want.float()).abs()
+    assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [0, 1])
+def test_k1_other_widths_run_the_general_body(dev, levels):
+    """Base width 32 is taken by no body of width 16: the general body is
+    launched, by shape alone, and agrees with the plain version."""
+    assert cftm_branch_variant(32, levels) == "general"
+    for cb in (4, 16, 32, 64):
+        for lv in (0, 1, 2):
+            assert cftm_branch_variant(cb, lv) == variant_by_shape(cb, lv)
+    rng = np.random.default_rng(50 + levels)
+    cb, c = 32, 32 * 4 ** levels
+    x = _randn(rng, (2, 32, 32, cb), dtype=torch.bfloat16)
+    args = [x, _randn(rng, (c, 3 * c), c ** -0.5, torch.bfloat16),
+            _randn(rng, (10, c // 2)), _randn(rng, (10, c // 2)),
+            torch.from_numpy(rng.uniform(0.5, 1.5, (2, cb)).astype(np.float32)),
+            _randn(rng, (2, cb), 0.2)]
+    want = cftm_branch_plain(*args, levels=levels).float()
+    got = cftm_branch(*[a.to(dev) for a in args], levels=levels).float().cpu()
+    d = (got - want).abs()
+    assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [0, 1])
+def test_k1_window_bodies_raise_on_a_misaligned_slice(dev, levels):
+    rng = np.random.default_rng(9)
+    c = 16 * 4 ** levels
+    body = _randn(rng, (1, 32, 32, 24), dtype=torch.bfloat16).to(dev)
+    wq = _randn(rng, (c, 3 * c), 0.25, torch.bfloat16).to(dev)
+    rel = _randn(rng, (10, c // 2)).to(dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        halo_attention_qkv(body[..., 4:20], wq, rel, rel, levels=levels)
 
 
 @pytest.mark.cuda
@@ -154,6 +228,67 @@ def test_k2_matches_plain(dev, scale, hw):
     assert tail_band_fused.launches == n0 + 1
     assert got.shape == (2, hw[0] * scale, hw[1] * scale, 3)
     assert float((got - want).abs().max()) < 8e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,shape,nf", [(4, (1, 512, 512), 64), (4, (2, 100, 76), 64),
+                                            (3, (1, 50, 37), 64), (2, (1, 7, 5), 64),
+                                            (4, (2, 20, 36), 32), (2, (1, 24, 40), 16)])
+def test_k2_tile_walk_matches_plain(dev, scale, shape, nf):
+    """The single-frame shape (more tiles than the grid has blocks), frames
+    that are no multiple of the 8x16 tile in either direction, a frame
+    smaller than one tile, and the narrower widths."""
+    rng = np.random.default_rng(scale + shape[1])
+
+    def u(shp, fan_in):
+        b = fan_in ** -0.5
+        return torch.from_numpy(rng.uniform(-b, b, shp).astype(np.float32))
+
+    cp0 = 4 * nf if scale == 4 else nf * scale * scale
+    p = {"c0": {"w": u((cp0, nf, 1, 1), nf), "b": u((cp0,), nf)}}
+    if scale == 4:
+        p["c1"] = {"w": u((4 * nf, nf, 1, 1), nf), "b": u((4 * nf,), nf)}
+        p["c2"] = {"w": u((3, nf, 3, 3), 9 * nf)}
+    else:
+        p["c1"] = {"w": u((3, nf, 3, 3), 9 * nf)}
+    x = _randn(rng, (*shape, nf), dtype=torch.bfloat16)
+    pd = {k: {n: v.to(dev) for n, v in sp.items()} for k, sp in p.items()}
+    ops = tail_band_operands(pd, x.to(dev), scale=scale)
+    lib = build.lib()
+    assert (lib.m2t_tail_band_tile(0), lib.m2t_tail_band_tile(1)) == TILE
+    n0 = tail_band_fused.launches
+    got = tail_band_fused(*ops, scale=scale, rgb_range=1.0)
+    assert tail_band_fused.launches == n0 + 1
+    want = tail_band_plain(*ops, scale=scale, rgb_range=1.0)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want.float()).abs().max()) < 8e-3
+
+
+@pytest.mark.cuda
+def test_k2b_mask_is_k2s(dev):
+    """K2b takes its clip mask from K2's own kernel: wherever K2's output is
+    strictly inside (0, rgb_range) the masked cotangent passes, and wherever
+    the plain pre-clamp output is clearly outside it is zero. Seen through
+    dy with a one-hot cotangent being costly, it is checked on the edge
+    gradients' finiteness and on a frame that is no multiple of either tile."""
+    rng = np.random.default_rng(31)
+
+    def u(shp, fan_in):
+        b = fan_in ** -0.5
+        return torch.from_numpy(rng.uniform(-b, b, shp).astype(np.float32)).to(dev)
+
+    nf = 64
+    p = {"c0": {"w": u((4 * nf, nf, 1, 1), nf), "b": u((4 * nf,), nf)},
+         "c1": {"w": u((4 * nf, nf, 1, 1), nf), "b": u((4 * nf,), nf)},
+         "c2": {"w": u((3, nf, 3, 3), 9 * nf)}}
+    ops = tail_band_operands(p, _randn(rng, (1, 20, 36, nf), dtype=torch.bfloat16).to(dev),
+                             scale=4)
+    g = _randn(rng, (1, 20, 36, 48), dtype=torch.bfloat16).to(dev)
+    got = tail_band_bwd(*ops, g, scale=4, rgb_range=1.0)
+    want = tail_band_plain_vjp(*ops, g, scale=4, rgb_range=1.0)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a.float()).all()), i
+        _grad_close(a, b, i)
 
 
 @pytest.mark.cuda
