@@ -18,8 +18,9 @@ phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
 of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted from the
-operands of this run; K1's, K2's and K3's rows also carry ``device_ms``,
-the device time from torch.profiler, and K1's the body each level launched),
+operands of this run; K1's, K2's, K3's, K1b's and K2b's rows also carry
+``device_ms``, the device time from torch.profiler, and K1's and K1b's the
+body each level launched),
 the last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
@@ -326,9 +327,13 @@ def profile_split(fn) -> str:
     torch.profiler (CUPTI); "not measured" where it records no device
     time. "K1 w16" and "K1 w64" are the window bodies of
     csrc/cftm_window.cuh (L = 0 and L = 1 at base width 16), "K1 c256" the
-    cluster body (L = 2), "K1 general" the body of every other width. In a
-    train step "K2" is two launches of K2's kernel: the forward, and K2b's
-    first pass (the clip mask), which runs the same kernel."""
+    cluster body (L = 2), "K1 general" the body of every other width. K1b's
+    kernels: "K1b win16" / "K1b win64" its window body at L = 0 / L = 1, "K1b
+    c256" its cluster body, "K1b proj" its second kernel (all levels), "K1b
+    general" the body of other widths; "reduce" is the tree reduction of
+    K1b's and K2b's partials. In a train step "K2" is two launches of K2's
+    kernel: the forward, and K2b's first pass (the clip mask), which runs the
+    same kernel; "K2b" is its second pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,7 +343,8 @@ def profile_split(fn) -> str:
         fn()
         torch.cuda.synchronize()
     kinds = {"K1 w16": 0.0, "K1 w64": 0.0, "K1 c256": 0.0, "K1 general": 0.0,
-             "K1b": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0, "reduce": 0.0,
+             "K1b win16": 0.0, "K1b win64": 0.0, "K1b c256": 0.0, "K1b proj": 0.0,
+             "K1b general": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0, "reduce": 0.0,
              "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -347,7 +353,11 @@ def profile_split(fn) -> str:
         if us is None:
             us = ev.cuda_time_total
         k = ev.key
-        kind = ("K1b" if "cftm_bwd" in k
+        kind = ("K1b win16" if "cftm_bwd_attn_win_kernel<16>" in k
+                else "K1b win64" if "cftm_bwd_attn_win_kernel" in k
+                else "K1b c256" if "cftm_bwd_attn_c256_kernel" in k
+                else "K1b general" if "_general_kernel" in k
+                else "K1b proj" if "cftm_bwd_proj_kernel" in k
                 else "K1 c256" if "cftm_branch_c256_kernel" in k
                 else "K1 w16" if "cftm_branch_w16_kernel" in k
                 else "K1 w64" if "cftm_branch_w64_kernel" in k
@@ -355,7 +365,7 @@ def profile_split(fn) -> str:
                 else "K2b" if "tail_band_bwd_kernel" in k
                 else "K2" if "tail_band_kernel" in k
                 else "K3" if "ff_conv_kernel" in k
-                else "reduce" if "reduce_rows_kernel" in k else "other")
+                else "reduce" if "reduce_tree_kernel" in k else "other")
         kinds[kind] += us / 1e3
     total = sum(kinds.values())
     if total == 0:
@@ -379,6 +389,7 @@ def run() -> dict:
     from m2trans_tpu_torch.ops.kernels.halo_attn import (
         cftm_branch,
         cftm_branch_bwd,
+        cftm_branch_bwd_variant,
         cftm_branch_plain,
         cftm_branch_plain_vjp,
         cftm_branch_variant,
@@ -514,10 +525,14 @@ def run() -> dict:
                     os.path.join(frames, name))
             cmd = [sys.executable, "-m", "m2trans_tpu_torch.infer", "--config",
                    CONFIG, "--model_path", pt, "--input", frames, "--output", out]
-            res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                                 timeout=600)
-            need(res.returncode == 0, f"infer exited {res.returncode}:\n{res.stderr}")
-            report = json.loads(res.stdout.strip().splitlines()[-1])
+            reports = {}
+            for depth in (1, 2):  # each frame waited for / two frames in flight
+                res = subprocess.run(cmd + ["--depth", str(depth)], cwd=ROOT,
+                                     capture_output=True, text=True, timeout=600)
+                need(res.returncode == 0,
+                     f"infer --depth {depth} exited {res.returncode}:\n{res.stderr}")
+                reports[depth] = json.loads(res.stdout.strip().splitlines()[-1])
+            report = reports[2]
             for name, (h, w) in shapes.items():
                 with Image.open(os.path.join(out, name)) as img:
                     size = (img.height, img.width, len(img.getbands()))
@@ -527,7 +542,9 @@ def run() -> dict:
                                                "ff_conv": 8 * 4, "tail_band": 4},
                  f"infer kernel launches {report['kernel_launches']}")
         print(f"phase 6 infer CLI: 4 frames (3x 96x96, 1x 100x76) -> x4 PNGs; "
-              f"report {json.dumps(report)}")
+              f"p50 ms at depth 1 / depth 2 {reports[1]['p50_ms']} / "
+              f"{reports[2]['p50_ms']}, fps {reports[1]['fps']} / {reports[2]['fps']}; "
+              f"report at depth 2 {json.dumps(report)}")
 
         # 7. times, CUDA events, median of 20 after warm-up
         k1_ms, k1_plain_ms, k1_bound, k1_dev = {}, {}, {}, {}
@@ -594,35 +611,55 @@ def run() -> dict:
               f"plain {fwd_plain_ms:.3f} ms ({mp / fwd_plain_ms * 1e3:.1f} MP/s); "
               f"device time of one kernel forward by kind: {fwd_split}")
 
-    # 8. K1b vs its plain VJP at the training shapes (batch 2 x 96x96)
+    # 8. K1b vs its plain VJP at the training shapes (batch 2 x 96x96), at
+    # the single-frame shape and at base width 32 (the general body); a
+    # second run must give the same bits (fixed-order sums, no atomics)
     k1b_err, parts = 0.0, []
-    for levels in (0, 1, 2):
-        args, add = branch_case(levels, bsz=2, seed=10 + levels)
+    for levels, bsz, hw, cb in ((0, 2, 96, 16), (1, 2, 96, 16), (2, 2, 96, 16),
+                                (0, 1, 512, 16), (1, 1, 512, 16), (2, 1, 512, 16),
+                                (0, 2, 32, 32), (1, 2, 32, 32)):
+        args, add = branch_case(levels, bsz=bsz, hw=hw, cb=cb, seed=10 + levels)
         gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
             levels)).bfloat16().cuda()
         for x_add in (None, add):
             got = cftm_branch_bwd(*args, gout, x_add=x_add, levels=levels)
+            again = cftm_branch_bwd(*args, gout, x_add=x_add, levels=levels)
             want = cftm_branch_plain_vjp(*args, gout, x_add=x_add, levels=levels)
             torch.cuda.synchronize()
-            mx = grad_errs(got, want, f"K1b L={levels} add={x_add is not None}")
+            what = f"K1b L={levels} {bsz}x{hw}x{hw}x{cb} add={x_add is not None}"
+            mx = grad_errs(got, want, what)
+            need(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+                 f"{what}: two runs differ")
             k1b_err = max(k1b_err, mx)
-            parts.append(f"L{levels}{'+add' if x_add is not None else ''} max {mx:.3g}")
-    print("phase 8 K1b cftm_branch_bwd vs plain VJP (bf16, 2x96x96x16, "
-          "dx dx_add ds dt dw drel_h drel_w within max(2e-3, 2e-2 max|b|)): "
-          + "; ".join(parts))
+            parts.append(f"L{levels}{'' if bsz == 2 and cb == 16 else f' {bsz}x{hw}x{hw}x{cb}'}"
+                         f"{'+add' if x_add is not None else ''} max {mx:.3g}")
+    k1b_variant = {levels: cftm_branch_bwd_variant(16, levels) for levels in (0, 1, 2)}
+    need(list(k1b_variant.values()) == ["w16_group", "w64_group", "c256_cluster4"]
+         and cftm_branch_bwd_variant(32, 0) == cftm_branch_bwd_variant(32, 1) == "general",
+         f"K1b bodies by shape: {k1b_variant}")
+    print("phase 8 K1b cftm_branch_bwd vs plain VJP (bf16, 2x96x96x16, 1x512x512x16 "
+          "and, on the general body, 2x32x32x32; dx dx_add ds dt dw drel_h drel_w "
+          "within max(2e-3, 2e-2 max|b|), a second run bit-identical): "
+          + "; ".join(parts) + "; bodies launched L0/L1/L2 "
+          + "/".join(k1b_variant[i] for i in range(3)))
 
     # 9. K2b vs its plain VJP: the x4 training shape, and x2 / x3
     k2b_err, parts = 0.0, []
-    for scale, shp in ((4, (2, 96, 96)), (2, (2, 48, 40)), (3, (2, 32, 24))):
+    for scale, shp in ((4, (2, 96, 96)), (4, (2, 100, 76)), (2, (2, 48, 40)),
+                       (3, (2, 32, 24))):
         ops, g = tail_case(scale, *shp, seed=20 + scale, with_grad=True)
         got = tail_band_bwd(*ops, g, scale=scale, rgb_range=1.0)
+        again = tail_band_bwd(*ops, g, scale=scale, rgb_range=1.0)
         want = tail_band_plain_vjp(*ops, g, scale=scale, rgb_range=1.0)
         torch.cuda.synchronize()
         mx = grad_errs(got, want, f"K2b x{scale}")
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"K2b x{scale}: two runs differ")
         k2b_err = max(k2b_err, mx)
         parts.append(f"x{scale} {shp} max {mx:.3g}")
     print("phase 9 K2b tail_band_bwd vs plain VJP (bf16, nf 64, all ten "
-          "operand gradients within max(2e-3, 2e-2 max|b|)): " + "; ".join(parts))
+          "operand gradients within max(2e-3, 2e-2 max|b|), a second run "
+          "bit-identical): " + "; ".join(parts))
 
     # 10. the flagship bf16 train step of the training loop, as the train
     # CLI runs it (make_train_step: policy_from_config, L1, backward, Adam)
@@ -905,11 +942,32 @@ def run() -> dict:
         m = init_m2trans(c, seed=0, device=dev)
         st = make_train_step(c, m, make_optimizer(c, m))
         step_ms[name] = time_ms(lambda: st(lr_b, hr_b), n=10)
+    # the profiler after every event timing: once it has run, launches from
+    # this process cost the host more
+    k1b_dev = {}
+    for levels in (0, 1, 2):
+        args, add = branch_case(levels, bsz=2, seed=10 + levels)
+        x_add = None if levels == 0 else add
+        gout = torch.randn(args[0].shape).bfloat16().cuda()
+        k1b_dev[levels] = device_ms(lambda: cftm_branch_bwd(
+            *args, gout, x_add=x_add, levels=levels))
+    k2b_dev = device_ms(lambda: tail_band_bwd(*ops, g, scale=4, rgb_range=1.0))
+    k2b_small_dev = {}
+    for scale in (2, 3):
+        ops_s, g_s = tail_case(scale, 2, 96, 96, seed=24 + scale, with_grad=True)
+        k2b_small_dev[scale] = device_ms(
+            lambda: tail_band_bwd(*ops_s, g_s, scale=scale, rgb_range=1.0))
     split = profile_split(lambda: step(lr_b, hr_b))
     print(f"phase 7 training times (ms, median of 20; steps of 10): K1b L0/L1/L2 "
           f"{k1b_ms[0]:.4f}/{k1b_ms[1]:.4f}/{k1b_ms[2]:.4f} vs plain VJP "
-          f"{k1b_plain_ms[0]:.4f}/{k1b_plain_ms[1]:.4f}/{k1b_plain_ms[2]:.4f}; "
-          f"K2b x4 {k2b_ms:.4f} vs plain VJP {k2b_plain_ms:.4f}; train step b2 "
+          f"{k1b_plain_ms[0]:.4f}/{k1b_plain_ms[1]:.4f}/{k1b_plain_ms[2]:.4f}, "
+          f"device time of a launch group from the profiler "
+          + "/".join(fmt_ms(k1b_dev[i]) for i in range(3)) + ", bound "
+          + "/".join(f"{k1b_bound[i]['bound_ms']:.5f}" for i in range(3))
+          + f"; K2b x4 {k2b_ms:.4f} vs plain VJP {k2b_plain_ms:.4f}, device time "
+          f"{fmt_ms(k2b_dev)} (both passes and the reductions; bound "
+          f"{k2b_bound['bound_ms']:.5f}), x2 / x3 at 2x96x96x64 "
+          f"{fmt_ms(k2b_small_dev[2])} / {fmt_ms(k2b_small_dev[3])}; train step b2 "
           f"96x96 kernels {step_ms['kernels']:.3f} vs plain bf16 "
           f"{step_ms['plain']:.3f}; device time of one kernel step by kind: {split}")
 
@@ -1004,11 +1062,19 @@ def run() -> dict:
          "replaces": pallas + "halo_attn.py:1053",
          "launches": train_launches["cftm_branch_bwd"], "max_abs_err": k1b_err,
          "ms": per_cftm(k1b_ms), "plain_ms": per_cftm(k1b_plain_ms),
-         **cftm_bound(k1b_bound), "library_ms": None},
+         **cftm_bound(k1b_bound), "library_ms": None,
+         "device_ms": None if None in k1b_dev.values() else per_cftm(k1b_dev),
+         "device_ms_by_level": k1b_dev, "variant_by_level": k1b_variant,
+         "bound_ms_by_level": {i: k1b_bound[i]["bound_ms"] for i in range(3)}},
         {"name": "tail_band_bwd", "route": "cuda", "source": csrc + "tail_band_bwd.cu",
          "replaces": pallas + "tail_band.py:438",
          "launches": train_launches["tail_band_bwd"], "max_abs_err": k2b_err,
-         "ms": k2b_ms, "plain_ms": k2b_plain_ms, **k2b_bound, "library_ms": None},
+         "ms": k2b_ms, "plain_ms": k2b_plain_ms, **k2b_bound, "library_ms": None,
+         "device_ms": k2b_dev,
+         "device_ms_by_level": {"x4": k2b_dev, "x2": k2b_small_dev[2],
+                                "x3": k2b_small_dev[3]},
+         "variant_by_level": {f"x{sc}": f"{sc * sc} roles, one a phase block"
+                              for sc in (2, 3, 4)}},
         {"name": "ff_conv", "route": "cuda", "source": csrc + "ff_conv.cu",
          "replaces": pallas + "ff_pair.py:60",
          "launches": launches["ff_conv"], "max_abs_err": k3_err,

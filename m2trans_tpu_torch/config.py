@@ -32,7 +32,7 @@ class Config:
     n_blocks: int = 8
     pretrain: Optional[str] = None
 
-    # training (read for surface parity; training is not ported yet)
+    # training (python -m m2trans_tpu_torch.train, train/loop.py)
     patch_size: int = 384
     batch_size: int = 2
     data_repeat: int = 5

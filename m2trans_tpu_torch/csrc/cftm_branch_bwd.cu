@@ -19,360 +19,434 @@
 //          pixel is a key of up to 3 neighbouring windows); pad keys
 //          outside the frame are dropped (zc is 0 there)
 //   dW   = zc^T dqkv,   dzc = dqkv W^T,   dz = IWT^L(dzc) + gout
-// The caller forms dx = dz*s, dx_add = r*dz, ds = sum dz*x, dt = sum dz.
+//   dx = bf16(dz*s), dx_add = bf16(r*dz), ds = sum dz*x, dt = sum dz
 //
-// What bounds it on the card: shared memory. The forward already holds a
-// window's zc/q/k/v in 221,440 of the 232,448 bytes a block may use at
-// C = 256, and the backward also needs dO, dP, dS and dq/dk/dv. Design, two
-// kernels and a reduction:
-//   (a) cftm_bwd_attn_kernel, per (image, 8x8 query block): the forward
-//       recompute up to P (shared memory laid out as K1's), then the
-//       attention VJP on the tensor cores (WMMA, bf16 in, f32 accumulate).
-//       dO goes through a per-window global scratch (bf16) and dP through
-//       another (f32), both read back from L2, so nothing beyond K1's
-//       shared memory is needed. dq, dk, dv leave per window (f32), with
-//       the window's rel-pos partials.
-//   (b) cftm_bwd_proj_kernel, per (image, 8x8 coarse pixel block): gathers
-//       dqkv of its 64 pixels from the windows in a fixed order (no
-//       atomics, so runs repeat exactly), then dW's per-block partial
-//       zc^T dqkv and dzc = dqkv W^T on the tensor cores, with W^T read
-//       from L2 as a column-major fragment, and the IWT^L + residual.
-//   reduce_rows_kernel sums the per-block weight partials in a fixed order
-//   (also used by K2b, tail_band_bwd.cu).
+// A launch group is three kernels, whatever the body:
+//   (a) the attention VJP, a window at a time: the forward recompute up to
+//       P, then dP, dS, dq, dv, dk and the window's rel-pos partials. dq
+//       (times C^-0.5), dk, dv leave per window in f32: a halo pixel is a
+//       key of up to 4 windows, and blocks cannot exchange otherwise;
+//   (b) the projection VJP, an 8x8 coarse pixel block at a time: gathers
+//       dqkv of its 64 pixels from the windows in a fixed order, then
+//       dW's partial zc^T dqkv and dzc = dqkv W^T on the tensor cores, the
+//       IWT^L, the residual and the affine's gradients (dx, dx_add, and the
+//       block's partial sums of ds and dt);
+//   (c) reduce_tree_kernel: every partial (dW over blocks, drel over windows,
+//       ds | dt over an image's blocks) summed in one launch in a fixed tree
+//       order, many threads a column.
+// No atomics on floats anywhere: two runs give the same bits.
+//
+// What bounded the first version on the card (PERF.md has its ablation): at
+// 2 x 96 x 96 a level has 288 / 72 / 18 windows for 132 SMs, one block a
+// window; the recompute ran on the general WMMA body; dO and dP went
+// through global scratch; (b) gathered element by element with a
+// 9-neighbour test each and read W^T as fragments from L2. Bodies, taken by
+// shape alone as the forward's (m2t_cftm_branch_bwd_variant names them);
+// kernel (a) of base width 16 is in cftm_branch_bwd_attn.cu, the body of
+// other widths in cftm_branch_bwd_general.cu (one nvcc each, side by side),
+// kernel (b), the reduction and the entry points here:
+//
+// Base width 16 at L = 0 (C = 16) and L = 1 (C = 64): cftm_bwd_attn_win_kernel,
+// a window to a block of four warps, 3 blocks an SM at C = 16. The warp owns
+// 16 query rows: its q stays in registers as the A fragments of q k^T (as in
+// cftm_window.cuh, whose pieces it shares), the logits, the softmax, dP =
+// dO v^T and dS stay on the accumulator registers (row sums by two quad
+// shuffles), dq = dS k takes dS from registers; P and dS cross shared
+// memory once in bf16 for the transposed products dv = P^T dO and dk = dS^T
+// q (ldmatrix.trans), dO = DWT^L(gout) is formed from gout into the room zc
+// left, and the rel-pos partials are summed from dk while it is on the chip.
+//
+// Base width 16 at L = 2 (C = 256): cftm_bwd_attn_c256_kernel, a window to
+// a cluster of four CTAs as in the forward, whose steps up to P it runs as
+// they are (cftm_c256.cuh). The CTA of rank r owns the coarse channels
+// [64r, 64r + 64): it forms its slice of dO, its partial dP = dO v^T over
+// those channels goes to the CTA that owns the 16 query rows (distributed
+// shared memory, summed in rank order, as the partial logits), which forms
+// dS from the f32 P it kept in registers and stores bf16 dS into all four;
+// dq, dv, dk of its 64 columns and the rel-pos partials are then local.
+//
+// (b) at base width 16: cftm_bwd_proj_kernel on mma.sync + ldmatrix, the
+// neighbour set of a pixel worked out once (a table in shared memory), the
+// gather in 16-byte loads, W through shared memory (cp.async, in flight
+// during the gather). At C = 256 an 8x8 block is split over four thread
+// blocks by base channel (4 each, all 16 subbands: 64 rows of W and of dW,
+// 64 columns of dzc), so 18 windows give 72 blocks and the 96 KB slice of W
+// fits beside dqkv.
+//
+// Every other base width (none on a model path): the first version's two
+// kernels, one block a window on WMMA through the steps of cftm_common.cuh,
+// with dO and dP in shared memory.
+//
+// wgmma was not taken: its 64-row tiles fit only the C = 256 projections,
+// which the cluster split cuts to 112 x 256 x 192 a CTA behind a chain of
+// barriers; what this kernel had to win was idle SMs and round trips
+// through global memory, not the tensor cores' rate.
 
-#include "cftm_common.cuh"
+#include "cftm_bwd_common.cuh"
+
+namespace m2t_cftm_bwd {
 
 namespace {
 
-using namespace m2t_cftm;
+// ---- (c) the reduction ----------------------------------------------------
 
-struct BwdArgs {
-  BranchArgs f;        // the forward's operands (out unused)
-  const bf16* gout;    // (B, H, W, Cb) contiguous
-  bf16* dO;            // (nwin, 64, C) scratch
-  float* dp;           // (nwin, 64, NKP) scratch
-  float* dq;           // (nwin, 64, C)
-  float* dk;           // (nwin, NKP, C)
-  float* dv;           // (nwin, NKP, C)
-  float* drel_part;    // (nwin, 10, C): [:, :, :C/2] rel_h, [:, :, C/2:] rel_w
-  float* dw_part;      // (nwin, C, 3C)
-  float* dz;           // (B, H, W, Cb) f32
+// out[batch][j] = sum over i < n of part[batch][i][j], as a fixed tree:
+// lane sums s_l = sum of the rows i = l (mod 8) in ascending order, then
+// ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)).
+struct ReduceJob {
+  const float* part;
+  void* out;
+  int nbatch, n, bf16_out;
+  long long len;
+};
+constexpr int RED_COLS = 32, RED_LANES = 8, MAX_JOBS = 3;
+struct ReduceJobs {
+  ReduceJob j[MAX_JOBS];
+  int first_block[MAX_JOBS + 1];
 };
 
-// Shared memory of kernel (b): [zc 64 x ld_bf(C) bf16] [dqkv 64 x ld_q bf16]
-// [dzc 64 x ld_o(C) f32]
-__host__ __device__ inline int ld_q(int C) { return 3 * C + 8; }
-__host__ __device__ inline size_t proj_smem(int C) {
-  return (size_t)NQ * ld_bf(C) * 2 + (size_t)NQ * ld_q(C) * 2 +
-         (size_t)NQ * ld_o(C) * 4;
+inline int reduce_blocks(const ReduceJob& j) {
+  return j.nbatch * (int)((j.len + RED_COLS - 1) / RED_COLS);
 }
 
-template <int L>
-__global__ void __launch_bounds__(THREADS) cftm_bwd_attn_kernel(BwdArgs a) {
-  constexpr int S = 1 << L;
-  constexpr int G = S * S;
-  const BranchArgs& f = a.f;
-  const int Cb = f.Cb, C = Cb * G, C2 = C / 2;
-  const int nbw = f.W / S / BLOCK, nblk = (f.H / S / BLOCK) * nbw;
-  const int b = blockIdx.y;
-  const int bi = blockIdx.x / nbw, bj = blockIdx.x % nbw;
-  const size_t win = (size_t)b * nblk + blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int LD = ld_bf(C);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout(C);
-  bf16* zc = reinterpret_cast<bf16*>(smem);
-  float* sim = reinterpret_cast<float*>(smem);
-  bf16* P = reinterpret_cast<bf16*>(smem + lay.p);
-  bf16* qs = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + lay.v);
-  float* stage = reinterpret_cast<float*>(smem + lay.stage) + warp * 16 * SLD;
-
-  bf16* dO = a.dO + win * NQ * C;
-  float* dp = a.dp + win * NQ * NKP;
-  float* dq = a.dq + win * NQ * C;
-  float* dk = a.dk + win * NKP * C;
-  float* dv = a.dv + win * NKP * C;
-
-  // forward recompute: zc, q/k/v, logits
-  load_zc<L>(f, b, bi, bj, NKP, zc);
-  __syncthreads();
-  project_qkv(f, C, zc, qs, ks, vs, stage);
-  __syncthreads();
-  logits(C, qs, ks, sim);
-  // dO = DWT^L(gout) of the block's 64 coarse pixels, bf16, to scratch
-  for (int item = tid; item < NQ * Cb; item += THREADS) {
-    const int p = item / Cb, c = item % Cb;
-    const int cr = bi * BLOCK + p / BLOCK, cc = bj * BLOCK + p % BLOCK;
-    float px[S][S], o[G];
-    for (int dy = 0; dy < S; ++dy)
-      for (int dx = 0; dx < S; ++dx)
-        px[dy][dx] = __bfloat162float(
-            a.gout[(((size_t)b * f.H + cr * S + dy) * f.W + cc * S + dx) * Cb + c]);
-    dwt<L>(px, o);
-    for (int g = 0; g < G; ++g) dO[p * C + g * Cb + c] = __float2bfloat16(o[g]);
-  }
-  __syncthreads();
-  softmax_rows(sim, P, true);  // P f32 in sim, bf16 in P
-  __syncthreads();
-
-  // dv = P^T dO (NKP x C) and dP = dO v^T (64 x NKP), to scratch
-  {
-    const int nct = C / 16, nv = (NKP / 16) * nct;
-    for (int tile = warp; tile < nv + (NQ / 16) * (NKP / 16); tile += WARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      if (tile < nv) {
-        const int rt = tile / nct, ct = tile % nct;
-        for (int kk = 0; kk < NQ / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, P + kk * 16 * LDP + rt * 16, LDP);
-          wmma::load_matrix_sync(fb, dO + kk * 16 * C + ct * 16, C);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dv + rt * 16 * C + ct * 16, acc, C,
-                                wmma::mem_row_major);
-      } else {
-        const int t = tile - nv, rt = t / (NKP / 16), ct = t % (NKP / 16);
-        for (int kk = 0; kk < C / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dO + rt * 16 * C + kk * 16, C);
-          wmma::load_matrix_sync(fb, vs + ct * 16 * LD + kk * 16, LD);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dp + rt * 16 * NKP + ct * 16, acc, NKP,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  __syncthreads();
-
-  // dS = P * (dP - rowsum(dP * P)), f32, to bf16 over P (zero on pad keys)
-  for (int row = warp; row < NQ; row += WARPS) {
-    float pv[4], gv[4], rs = 0.f;
-    for (int j = 0; j < 4; ++j) {
-      const int col = lane + 32 * j;
-      pv[j] = col < NK ? sim[row * LDS + col] : 0.f;
-      gv[j] = col < NK ? dp[row * NKP + col] : 0.f;
-      rs += pv[j] * gv[j];
-    }
-    for (int off = 16; off > 0; off /= 2)
-      rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    for (int j = 0; j < 4; ++j) {
-      const int col = lane + 32 * j;
-      if (col < NKP) P[row * LDP + col] = __float2bfloat16(pv[j] * (gv[j] - rs));
-    }
-  }
-  __syncthreads();
-
-  // dq = dS k (64 x C) and dk = dS^T q (NKP x C), to scratch
-  {
-    const int nct = C / 16, nq = (NQ / 16) * nct;
-    for (int tile = warp; tile < nq + (NKP / 16) * nct; tile += WARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      if (tile < nq) {
-        const int rt = tile / nct, ct = tile % nct;
-        for (int kk = 0; kk < NKP / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, P + rt * 16 * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(fb, ks + kk * 16 * LD + ct * 16, LD);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dq + rt * 16 * C + ct * 16, acc, C,
-                                wmma::mem_row_major);
-      } else {
-        const int t = tile - nq, rt = t / nct, ct = t % nct;
-        for (int kk = 0; kk < NQ / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, P + kk * 16 * LDP + rt * 16, LDP);
-          wmma::load_matrix_sync(fb, qs + kk * 16 * LD + ct * 16, LD);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dk + rt * 16 * C + ct * 16, acc, C,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  __syncthreads();
-
-  // rel-pos partials of this window: rel_h by window row, rel_w by column
-  float* dr = a.drel_part + win * 10 * C;
-  for (int item = tid; item < 10 * C; item += THREADS) {
-    const int r = item / C, ch = item % C;
-    float s = 0.f;
-    for (int u = 0; u < 10; ++u)
-      s += dk[win_slot(ch < C2 ? r : u, ch < C2 ? u : r) * C + ch];
-    dr[item] = s;
-  }
-}
-
-template <int L>
-__global__ void __launch_bounds__(THREADS) cftm_bwd_proj_kernel(BwdArgs a) {
-  constexpr int S = 1 << L;
-  constexpr int G = S * S;
-  const BranchArgs& f = a.f;
-  const int Cb = f.Cb, C = Cb * G, C3 = 3 * C;
-  const int nbh = f.H / S / BLOCK, nbw = f.W / S / BLOCK, nblk = nbh * nbw;
-  const int b = blockIdx.y;
-  const int bi = blockIdx.x / nbw, bj = blockIdx.x % nbw;
-  const size_t blk = (size_t)b * nblk + blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int LD = ld_bf(C), LQ = ld_q(C), LO = ld_o(C);
-  const float scale = 1.f / sqrtf((float)C);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* zc = reinterpret_cast<bf16*>(smem);
-  bf16* dqkv = zc + NQ * LD;
-  float* dzc = reinterpret_cast<float*>(dqkv + NQ * LQ);
-
-  // zc of the 64 block pixels (window slots 0..63), as the forward
-  load_zc<L>(f, b, bi, bj, NQ, zc);
-
-  // dqkv: own window's dq (times C^-0.5), and dk | dv summed over every
-  // window that holds the pixel as a key, in a fixed order
-  for (int item = tid; item < NQ * C3; item += THREADS) {
-    const int p = item / C3, col = item % C3;
-    const int li = p / BLOCK, lj = p % BLOCK;
-    float v;
-    if (col < C) {
-      v = a.dq[(blk * NQ + p) * C + col] * scale;
-    } else {
-      const float* src = col < 2 * C ? a.dk : a.dv;
-      const int c = col < 2 * C ? col - C : col - 2 * C;
-      v = 0.f;
-      for (int dy = -1; dy <= 1; ++dy)
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int nbi = bi + dy, nbj = bj + dx;
-          const int wr = 1 + li - BLOCK * dy, wc = 1 + lj - BLOCK * dx;
-          if (nbi < 0 || nbi >= nbh || nbj < 0 || nbj >= nbw || wr < 0 ||
-              wr > 9 || wc < 0 || wc > 9)
-            continue;
-          const size_t w = (size_t)b * nblk + nbi * nbw + nbj;
-          v += src[(w * NKP + win_slot(wr, wc)) * C + c];
-        }
-    }
-    dqkv[p * LQ + col] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  // dW partial = zc^T dqkv (C x 3C) to global; dzc = dqkv W^T (64 x C)
-  {
-    const int nw = (C / 16) * (C3 / 16), nz = (NQ / 16) * (C / 16);
-    float* dwp = a.dw_part + blk * C * C3;
-    for (int tile = warp; tile < nw + nz; tile += WARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      if (tile < nw) {
-        const int rt = tile / (C3 / 16), ct = tile % (C3 / 16);
-        for (int kk = 0; kk < NQ / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, zc + kk * 16 * LD + rt * 16, LD);
-          wmma::load_matrix_sync(fb, dqkv + kk * 16 * LQ + ct * 16, LQ);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dwp + (size_t)rt * 16 * C3 + ct * 16, acc, C3,
-                                wmma::mem_row_major);
-      } else {
-        const int t = tile - nw, rt = t / (C / 16), ct = t % (C / 16);
-        for (int kk = 0; kk < C3 / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dqkv + rt * 16 * LQ + kk * 16, LQ);
-          wmma::load_matrix_sync(fb, f.w + (size_t)ct * 16 * C3 + kk * 16, C3);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(dzc + rt * 16 * LO + ct * 16, acc, LO,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  __syncthreads();
-
-  // dz = IWT^L(dzc) + gout (the residual), f32
-  for (int item = tid; item < NQ * Cb; item += THREADS) {
-    const int p = item / Cb, c = item % Cb;
-    const int cr = bi * BLOCK + p / BLOCK, cc = bj * BLOCK + p % BLOCK;
-    float o[G], px[S][S];
-    for (int g = 0; g < G; ++g) o[g] = dzc[p * LO + g * Cb + c];
-    iwt<L>(o, px);
-    for (int dy = 0; dy < S; ++dy)
-      for (int dx = 0; dx < S; ++dx) {
-        const size_t i =
-            (((size_t)b * f.H + cr * S + dy) * f.W + cc * S + dx) * Cb + c;
-        a.dz[i] = px[dy][dx] + __bfloat162float(a.gout[i]);
-      }
-  }
-}
-
-// out[j] = sum_i part[i * len + j], i in order
-__global__ void reduce_rows_kernel(const float* part, int n, long long len,
-                                   float* out) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= len) return;
+__global__ void __launch_bounds__(RED_COLS * RED_LANES)
+reduce_tree_kernel(ReduceJobs js) {
+  __shared__ float red[RED_LANES][RED_COLS];
+  int k = 0;
+  while (k + 1 < MAX_JOBS && (int)blockIdx.x >= js.first_block[k + 1]) ++k;
+  const ReduceJob& j = js.j[k];
+  const int lb = blockIdx.x - js.first_block[k];
+  const int bpb = (int)((j.len + RED_COLS - 1) / RED_COLS);
+  const int batch = lb / bpb;
+  const long long col = (long long)(lb % bpb) * RED_COLS + threadIdx.x % RED_COLS;
+  const int lane = threadIdx.x / RED_COLS;
   float s = 0.f;
-  for (int i = 0; i < n; ++i) s += part[(size_t)i * len + j];
-  out[j] = s;
+  if (col < j.len) {
+    const float* p = j.part + (size_t)batch * j.n * j.len + col;
+#pragma unroll 8
+    for (int i = lane; i < j.n; i += RED_LANES) s += p[(size_t)i * j.len];
+  }
+  red[lane][threadIdx.x % RED_COLS] = s;
+  __syncthreads();
+  if (lane == 0 && col < j.len) {
+    const int c = threadIdx.x;
+    const float v = ((red[0][c] + red[1][c]) + (red[2][c] + red[3][c])) +
+                    ((red[4][c] + red[5][c]) + (red[6][c] + red[7][c]));
+    const size_t o = (size_t)batch * j.len + col;
+    if (j.bf16_out) static_cast<bf16*>(j.out)[o] = __float2bfloat16(v);
+    else static_cast<float*>(j.out)[o] = v;
+  }
 }
 
-template <int L>
-cudaError_t launch_bwd(const BwdArgs& a, float* dw, float* drel,
-                       cudaStream_t st) {
-  const int S = 1 << L;
-  const int C = a.f.Cb * S * S;
-  const size_t sa = layout(C).total, sb = proj_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      cftm_bwd_attn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sa);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(cftm_bwd_proj_kernel<L>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sb);
-  if (err != cudaSuccess) return err;
-  const int nblk = (a.f.H / S / BLOCK) * (a.f.W / S / BLOCK);
-  dim3 grid(nblk, a.f.B);
-  cftm_bwd_attn_kernel<L><<<grid, THREADS, sa, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  cftm_bwd_proj_kernel<L><<<grid, THREADS, sb, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int nwin = nblk * a.f.B;
-  const long long lw = (long long)C * 3 * C, lr = 10LL * C;
-  reduce_rows_kernel<<<(unsigned)((lw + 255) / 256), 256, 0, st>>>(
-      a.dw_part, nwin, lw, dw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_rows_kernel<<<(unsigned)((lr + 255) / 256), 256, 0, st>>>(
-      a.drel_part, nwin, lr, drel);
+cudaError_t launch_reduce(const ReduceJob* jobs, int njobs, cudaStream_t st) {
+  ReduceJobs js;
+  int total = 0;
+  for (int k = 0; k < MAX_JOBS; ++k) {
+    js.j[k] = jobs[k < njobs ? k : njobs - 1];
+    js.first_block[k] = total;
+    if (k < njobs) total += reduce_blocks(jobs[k]);
+  }
+  js.first_block[MAX_JOBS] = total;
+  for (int k = njobs; k < MAX_JOBS; ++k) js.first_block[k] = total;
+  if (total == 0) return cudaSuccess;
+  reduce_tree_kernel<<<total, RED_COLS * RED_LANES, 0, st>>>(js);
   return cudaGetLastError();
+}
+
+// ---- (b) at base width 16 ---------------------------------------------------
+
+namespace bproj {
+
+constexpr int CB = 16;
+constexpr int MAXNB = 4;  // windows that hold one pixel as a key
+
+// C coarse channels; the 8x8 block is split over NS thread blocks by base
+// channel: block r takes the base channels [r*CBS, (r+1)*CBS) with all their
+// subbands, local channel lc = g*CBS + cc <-> coarse channel g*16 + r*CBS + cc.
+template <int C, int NS>
+struct Cfg {
+  static constexpr int L = C == 16 ? 0 : C == 64 ? 1 : 2;
+  // threads: at C = 256 the gather is 48 float4 items a thread of 256 and a
+  // chain of L2 latencies; twice the threads halve the chain
+  static constexpr int NT = C == 256 ? 512 : 256;
+  static constexpr int G = C / CB;
+  static constexpr int CBS = CB / NS;
+  static constexpr int CS = C / NS;
+  static constexpr int QL = 3 * C + 8;   // dqkv and W rows, bf16
+  static constexpr int ZL = CS + 8;      // zc rows, bf16
+  static constexpr int DL = CS + 4;      // dzc rows, f32
+  static constexpr int OFF_W = NQ * QL * 2;
+  static constexpr int OFF_ZC = OFF_W + CS * QL * 2;
+  static constexpr int OFF_DZ = OFF_ZC + NQ * ZL * 2;
+  static constexpr int OFF_NB = OFF_DZ + NQ * DL * 4;
+  static constexpr int OFF_RED = OFF_NB + NQ * (2 * MAXNB + 1) * 4;
+  static constexpr int SMEM = OFF_RED + NQ * CBS * 2 * 4;
+  static_assert(OFF_W % 16 == 0 && OFF_ZC % 16 == 0 && OFF_DZ % 16 == 0 &&
+                OFF_NB % 16 == 0 && OFF_RED % 16 == 0, "16-byte alignment");
+  static_assert(SMEM <= 232448, "fits a block");
+  __device__ static __forceinline__ int chan(int lc, int r) {
+    return (lc / CBS) * CB + r * CBS + lc % CBS;
+  }
+};
+
+template <int C, int NS>
+__global__ void __launch_bounds__(Cfg<C, NS>::NT) cftm_bwd_proj_kernel(BwdArgs a) {
+  using K = Cfg<C, NS>;
+  constexpr int NT = K::NT, NW = NT / 32;
+  constexpr int L = K::L, S = 1 << L, G = K::G, CBS = K::CBS, CS = K::CS,
+                QL = K::QL, ZL = K::ZL, DL = K::DL, C3 = 3 * C;
+  if (M2T_K1B_DONE(7)) return;
+  const BranchArgs& f = a.f;
+  const int nbh = f.H / S / BLOCK, nbw = f.W / S / BLOCK, nblk = nbh * nbw;
+  const int b = blockIdx.y, blk = blockIdx.x / NS, r = blockIdx.x % NS;
+  const int bi = blk / nbw, bj = blk % nbw;
+  const size_t win = (size_t)b * nblk + blk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int lrow = ldm_row(lane), lcol = ldm_col(lane);
+  const int krow = (lane & 7) + (lane >> 4) * 8, kcol = ((lane >> 3) & 1) * 8;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* dqkv = reinterpret_cast<bf16*>(smem);
+  bf16* zcs = reinterpret_cast<bf16*>(smem + K::OFF_ZC);
+  float* dzc = reinterpret_cast<float*>(smem + K::OFF_DZ);
+  int* nb = reinterpret_cast<int*>(smem + K::OFF_NB);
+  float* red = reinterpret_cast<float*>(smem + K::OFF_RED);
+  const uint32_t q_s = smem_u32(dqkv), w_s = smem_u32(smem + K::OFF_W),
+                 z_s = smem_u32(zcs);
+
+  // the block's rows of W, in flight during the gather
+  for (int i = tid; i < CS * (C3 / 8); i += NT) {
+    const int lc = i / (C3 / 8), v = i % (C3 / 8);
+    cp_async16(w_s + (lc * QL + v * 8) * 2,
+               f.w + (size_t)K::chan(lc, r) * C3 + v * 8, 16);
+  }
+  cp_async_commit();
+
+  // per pixel, once: the windows that hold it as a key and its slot there,
+  // in the fixed order dy = -1..1, dx = -1..1 (its own window among them)
+  if (tid < NQ) {
+    const int li = tid / BLOCK, lj = tid % BLOCK;
+    int n = 0;
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int nbi = bi + dy, nbj = bj + dx;
+        const int wr = 1 + li - BLOCK * dy, wc = 1 + lj - BLOCK * dx;
+        if (nbi < 0 || nbi >= nbh || nbj < 0 || nbj >= nbw || wr < 0 || wr > 9 ||
+            wc < 0 || wc > 9)
+          continue;
+        nb[tid * (2 * MAXNB + 1) + 1 + 2 * n] = (b * nblk + nbi * nbw + nbj);
+        nb[tid * (2 * MAXNB + 1) + 2 + 2 * n] = win_slot(wr, wc);
+        ++n;
+      }
+    nb[tid * (2 * MAXNB + 1)] = n;
+  }
+
+  // zc of the block's 64 pixels, this block's channels, as the forward
+  if constexpr (L < 2) {
+    if (tid < NQ)
+      form_row<L, true>(f, f.x, f.x_sb, f.x_sh, f.x_sw, b, bi * BLOCK + tid / BLOCK,
+                        bj * BLOCK + tid % BLOCK, true, zcs + tid * ZL);
+  } else {
+    static_assert(L < 2 || CBS == 4, "a quarter of the base channels a block");
+    if (tid < NQ) {
+      float o[4][16];
+      dwt2_quarter<true>(f, f.x, f.x_sb, f.x_sh, f.x_sw, b, bi * BLOCK + tid / BLOCK,
+                         bj * BLOCK + tid % BLOCK, r, o);
+#pragma unroll
+      for (int g = 0; g < 16; ++g)
+        *reinterpret_cast<uint2*>(zcs + tid * ZL + g * 4) =
+            make_uint2(pack_bf16(o[0][g], o[1][g]), pack_bf16(o[2][g], o[3][g]));
+    }
+  }
+  __syncthreads();
+
+  // dqkv: the pixel's dq from its own window, dk | dv summed over its
+  // windows in the table's order; 16 bytes a load
+  // (a fixed four loads an item, the absent ones predicated off, and four
+  // items unrolled: sixteen loads in flight a thread)
+#pragma unroll 4
+  for (int item = tid; item < NQ * (C3 / 4); item += NT) {
+    const int p = item / (C3 / 4), col = (item % (C3 / 4)) * 4;
+    const bool own = col < C;
+    const float* src = own ? a.dq : col < 2 * C ? a.dk : a.dv;
+    const int c = own ? col : col < 2 * C ? col - C : col - 2 * C;
+    const int* e = nb + p * (2 * MAXNB + 1);
+    const int n = own ? 1 : e[0];
+    float4 t[MAXNB];
+#pragma unroll
+    for (int k = 0; k < MAXNB; ++k) {
+      const size_t row = own ? win * NQ + p : (size_t)e[1 + 2 * k] * NKP + e[2 + 2 * k];
+      t[k] = k < n ? *reinterpret_cast<const float4*>(src + row * C + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float4 v = t[0];
+#pragma unroll
+    for (int k = 1; k < MAXNB; ++k) {
+      v.x += t[k].x; v.y += t[k].y; v.z += t[k].z; v.w += t[k].w;
+    }
+    *reinterpret_cast<uint2*>(dqkv + p * QL + col) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (M2T_K1B_DONE(8)) return;
+
+  // dzc = dqkv W^T over this block's channels (64 x CS, K = 3C), then this
+  // block's rows of the dW partial = zc^T dqkv (CS x 3C, K = 64), in 16 x 16
+  // units over the warps
+  constexpr int NDZ = (NQ / 16) * (CS / 16), NDW = (CS / 16) * (C3 / 16);
+  float* dwp = a.dw_part + win * C * C3;
+  for (int unit = warp; unit < NDZ + NDW; unit += NW) {
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if (unit < NDZ) {
+      const int mt = unit / (CS / 16), ct = unit % (CS / 16);
+#pragma unroll 4
+      for (int kk = 0; kk < C3 / 16; ++kk) {
+        uint32_t fa[4], fb[4];
+        ldmatrix_x4(fa, q_s + ((mt * 16 + lrow) * QL + kk * 16 + lcol) * 2);
+        ldmatrix_x4(fb, w_s + ((ct * 16 + krow) * QL + kk * 16 + kcol) * 2);
+        mma_bf16(acc[0], fa, fb[0], fb[1]);
+        mma_bf16(acc[1], fa, fb[2], fb[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(dzc + (mt * 16 + g8 + hr * 8) * DL + ct * 16 +
+                                     nt * 8 + 2 * t4) =
+              make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
+    } else {
+      const int u = unit - NDZ, mt = u / (C3 / 16), ct = u % (C3 / 16);
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk) {
+        uint32_t fa[4], fb[4];
+        ldmatrix_x4_trans(fa, z_s + ((kk * 16 + krow) * ZL + mt * 16 + kcol) * 2);
+        ldmatrix_x4_trans(fb, q_s + ((kk * 16 + lrow) * QL + ct * 16 + lcol) * 2);
+        mma_bf16(acc[0], fa, fb[0], fb[1]);
+        mma_bf16(acc[1], fa, fb[2], fb[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(
+              dwp + (size_t)K::chan(mt * 16 + g8 + hr * 8, r) * C3 + ct * 16 + nt * 8 +
+              2 * t4) = make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
+    }
+  }
+  __syncthreads();
+
+  // dz = IWT^L(dzc) + gout; dx, dx_add and the block's shares of ds and dt,
+  // summed over its 64 coarse pixels in order
+  for (int item = tid; item < NQ * CBS; item += NT) {
+    const int p = item / CBS, cc = item % CBS;
+    float o[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) o[g] = dzc[p * DL + g * CBS + cc];
+    affine_vjp<L>(a, b, bi * BLOCK + p / BLOCK, bj * BLOCK + p % BLOCK, r * CBS + cc,
+                  o, red[item * 2], red[item * 2 + 1]);
+  }
+  __syncthreads();
+  if (tid < 2 * CBS) {
+    const int which = tid / CBS, cc = tid % CBS;
+    float sum = 0.f;
+    for (int p = 0; p < NQ; ++p) sum += red[(p * CBS + cc) * 2 + which];
+    a.st_part[(win * 2 + which) * CB + r * CBS + cc] = sum;
+  }
+}
+
+}  // namespace bproj
+
+// ---- launchers ---------------------------------------------------------------
+
+// Which body a shape takes, as the forward: 0 the general one, 1 the cluster
+// body (C = 256), 2 and 3 a window to a block of four warps (C = 16, C = 64).
+inline int variant_of(int Cb, int levels) {
+  if (Cb != 16) return 0;
+  return levels == 2 ? 1 : levels == 0 ? 2 : levels == 1 ? 3 : 0;
+}
+
+inline bool aligned16(const BwdArgs& a) {
+  auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const BranchArgs& f = a.f;
+  bool ok = a16(f.x) && a16(f.w) && a16(a.gout) && f.x_sb % 8 == 0 &&
+            f.x_sh % 8 == 0 && f.x_sw % 8 == 0 && a16(a.dq) && a16(a.dk) &&
+            a16(a.dv) && a16(a.dw_part);
+  if (f.xadd)
+    ok = ok && a16(f.xadd) && f.a_sb % 8 == 0 && f.a_sh % 8 == 0 && f.a_sw % 8 == 0;
+  return ok;
+}
+
+template <int C, int NS>
+cudaError_t launch_proj(const BwdArgs& a, int nblk, cudaStream_t st) {
+  using K = bproj::Cfg<C, NS>;
+  cudaError_t err = set_smem(bproj::cftm_bwd_proj_kernel<C, NS>, K::SMEM);
+  if (err != cudaSuccess) return err;
+  bproj::cftm_bwd_proj_kernel<C, NS><<<dim3(nblk * NS, a.f.B), K::NT, K::SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd(const BwdArgs& a, int levels, void* dw, void* drel,
+                       void* st_out, cudaStream_t st) {
+  if (levels < 0 || levels > 2) return cudaErrorInvalidValue;
+  const int S = 1 << levels, Cb = a.f.Cb, C = Cb * S * S;
+  const int nblk = (a.f.H / S / BLOCK) * (a.f.W / S / BLOCK);
+  cudaError_t err;
+  if (variant_of(Cb, levels) == 0) {
+    err = launch_general(a, levels, nblk, st);
+  } else {
+    if (!aligned16(a)) return cudaErrorMisalignedAddress;
+    if ((err = launch_attn_b16(a, levels, nblk, st)) != cudaSuccess) return err;
+    err = levels == 0   ? launch_proj<16, 1>(a, nblk, st)
+          : levels == 1 ? launch_proj<64, 1>(a, nblk, st)
+                        : launch_proj<256, 4>(a, nblk, st);
+  }
+  if (err != cudaSuccess || M2T_K1B_STOP) return err;
+  const ReduceJob jobs[3] = {
+      {a.dw_part, dw, 1, nblk * a.f.B, 1, (long long)C * 3 * C},
+      {a.drel_part, drel, 1, nblk * a.f.B, 0, 10LL * C},
+      {a.st_part, st_out, a.f.B, nblk, 0, 2LL * Cb}};
+  return launch_reduce(jobs, 3, st);
 }
 
 }  // namespace
 
-extern "C" int m2t_reduce_rows(const void* part, int n, long long len,
-                               void* out, void* stream) {
-  reduce_rows_kernel<<<(unsigned)((len + 255) / 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), n, len, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+}  // namespace m2t_cftm_bwd
+
+using namespace m2t_cftm_bwd;
+
+// out[b][j] = sum over i < n of part[(b * n + i) * len + j] (f32), in the
+// fixed tree order of reduce_tree_kernel, for nbatch independent sums in one
+// launch; K2b's reduction (tail_band_bwd.cu).
+extern "C" int m2t_reduce_batched(const void* part, int nbatch, int n,
+                                  long long len, void* out, void* stream) {
+  const ReduceJob job = {static_cast<const float*>(part), out, nbatch, n, 0, len};
+  return (int)launch_reduce(&job, 1, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of kernel (a) (which = 0) and (b) (which = 1) at width C.
-extern "C" int m2t_cftm_branch_bwd_smem(int C, int which) {
-  return (int)(which == 0 ? layout(C).total : proj_smem(C));
+// The body K1b launches for (Cb, levels): 0 the general one, 1 the C = 256
+// cluster body, 2 / 3 a window to a block of four warps at C = 16 / C = 64.
+extern "C" int m2t_cftm_branch_bwd_variant(int Cb, int levels) {
+  return variant_of(Cb, levels);
+}
+
+// Shared memory of kernel (a) (which = 0) and (b) (which = 1) for (Cb, levels).
+extern "C" int m2t_cftm_branch_bwd_smem(int Cb, int levels, int which) {
+  switch (variant_of(Cb, levels)) {
+    case 0: return general_smem(Cb << (2 * levels), Cb, which);
+    case 1: return which == 0 ? attn_b16_smem(levels) : bproj::Cfg<256, 4>::SMEM;
+    case 2: return which == 0 ? attn_b16_smem(levels) : bproj::Cfg<16, 1>::SMEM;
+    default: return which == 0 ? attn_b16_smem(levels) : bproj::Cfg<64, 1>::SMEM;
+  }
 }
 
 extern "C" int m2t_cftm_branch_bwd(
     const void* x, const void* xadd, const void* s, const void* t,
     const void* w, const void* relh, const void* relw, const void* gout,
-    void* dO, void* dp, void* dq, void* dk, void* dv, void* drel_part,
-    void* dw_part, void* dz, void* dw, void* drel, int B, int H, int W,
-    int Cb, int levels, long long x_sb, long long x_sh, long long x_sw,
+    void* dq, void* dk, void* dv, void* drel_part, void* dw_part, void* st_part,
+    void* dx, void* dxadd, void* dw, void* drel, void* st_out, int B, int H,
+    int W, int Cb, int levels, long long x_sb, long long x_sh, long long x_sw,
     long long a_sb, long long a_sh, long long a_sw, float r, void* stream) {
   BwdArgs a;
   a.f.x = static_cast<const bf16*>(x);
@@ -388,21 +462,14 @@ extern "C" int m2t_cftm_branch_bwd(
   a.f.a_sb = a_sb; a.f.a_sh = a_sh; a.f.a_sw = a_sw;
   a.f.r = r;
   a.gout = static_cast<const bf16*>(gout);
-  a.dO = static_cast<bf16*>(dO);
-  a.dp = static_cast<float*>(dp);
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
   a.drel_part = static_cast<float*>(drel_part);
   a.dw_part = static_cast<float*>(dw_part);
-  a.dz = static_cast<float*>(dz);
-  float* dwf = static_cast<float*>(dw);
-  float* drf = static_cast<float*>(drel);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (levels) {
-    case 0: return (int)launch_bwd<0>(a, dwf, drf, st);
-    case 1: return (int)launch_bwd<1>(a, dwf, drf, st);
-    case 2: return (int)launch_bwd<2>(a, dwf, drf, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  a.st_part = static_cast<float*>(st_part);
+  a.dx = static_cast<bf16*>(dx);
+  a.dxadd = static_cast<bf16*>(dxadd);
+  return (int)launch_bwd(a, levels, dw, drel, st_out,
+                         static_cast<cudaStream_t>(stream));
 }

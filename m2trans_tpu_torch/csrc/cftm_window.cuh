@@ -1,6 +1,7 @@
 // K1 / K1n at base width 16, L = 0 (C = 16) and L = 1 (C = 64): the bodies
 // that give a window to a warp (w16) or to a group of four warps (w64).
-// Included by cftm_branch.cu alone, whose header states the function.
+// Included by cftm_branch.cu, whose header states the function, and by
+// cftm_branch_bwd_attn.cu, whose window body shares the pieces above the kernels.
 //
 // What bounds these shapes on the card: nothing the arithmetic or the bytes
 // would explain (0.6 and 4.6 MFLOP a window, ~7 MB a launch, a bound of 1.4
@@ -44,6 +45,10 @@ namespace m2t_cftm_win {
 using namespace m2t_cftm;
 using namespace m2t_ptx;
 
+#ifndef M2T_K1_STOP
+#define M2T_K1_STOP 0
+#endif
+
 // Timing ablation: the window's work stops after step n (2 zc, 3 projection,
 // 4 logits, 5 softmax, 6 P v); values still in registers go to `sink`.
 #define M2T_K1_DONE(n) (M2T_K1_STOP != 0 && M2T_K1_STOP <= (n))
@@ -86,11 +91,12 @@ __device__ __forceinline__ float bf_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
 }
 
-// Softmax of this warp's 16 query rows over the 100 real keys, on the
-// logits' accumulator registers (row g8: s[nt][0..1], row g8 + 8:
-// s[nt][2..3], key nt*8 + 2*t4 + e), and bf16(P) as the A fragments of P v.
-__device__ __forceinline__ void softmax_fragments(float (&s)[NKP / 8][4], int t4,
-                                                  uint32_t (&pf)[NKP / 16][4]) {
+// First half of the softmax of this warp's 16 query rows over the 100 real
+// keys, on the logits' accumulator registers (row g8: s[nt][0..1], row
+// g8 + 8: s[nt][2..3], key nt*8 + 2*t4 + e): s becomes exp(s - rowmax), zero
+// on the pad slots, and inv the reciprocal of each row's sum.
+__device__ __forceinline__ void softmax_exp(float (&s)[NKP / 8][4], int t4,
+                                            float (&inv)[2]) {
   constexpr int NT = NKP / 8;
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -114,13 +120,20 @@ __device__ __forceinline__ void softmax_fragments(float (&s)[NKP / 8][4], int t4
       s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
       sum[e >> 1] += s[nt][e];
     }
-  float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
     sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
     inv[hr] = 1.f / sum[hr];
   }
+}
+
+// Softmax of this warp's 16 query rows (softmax_exp), and bf16(P) as the A
+// fragments of P v.
+__device__ __forceinline__ void softmax_fragments(float (&s)[NKP / 8][4], int t4,
+                                                  uint32_t (&pf)[NKP / 16][4]) {
+  float inv[2];
+  softmax_exp(s, t4, inv);
 #pragma unroll
   for (int kk = 0; kk < NKP / 16; ++kk)
 #pragma unroll
@@ -141,6 +154,10 @@ __device__ __forceinline__ float2 rel_pair(const float* rel, int row, int ch) {
                               : rel + 10 * (C / 2) + wc * (C / 2) + ch - C / 2;
   return make_float2(p[0], p[1]);
 }
+
+// The kernels below belong to cftm_branch.cu's object alone; a source that
+// wants only the pieces above defines M2T_WINDOW_PIECES_ONLY.
+#ifndef M2T_WINDOW_PIECES_ONLY
 
 // ---- C = 16 (L = 0): a window to a warp ----------------------------------
 
@@ -652,5 +669,7 @@ __global__ void __launch_bounds__(NT, 1) cftm_branch_w64_kernel(BranchArgs a) {
 }
 
 }  // namespace w64
+
+#endif  // M2T_WINDOW_PIECES_ONLY
 
 }  // namespace m2t_cftm_win

@@ -58,9 +58,6 @@
 // instruction stream; sixteen rows a warp keep every intermediate in
 // registers.
 
-#include "mma_ptx.cuh"
-#include "tail_common.cuh"
-
 // Timing ablation (tools/kernel_ablation.py builds it; results are wrong by
 // design): bit 0 the launch alone, bit 1 GELU replaced by the identity,
 // bit 2 no stage products, bit 3 no contraction with w3 (no T), bit 4 no
@@ -69,23 +66,14 @@
 #define M2T_K2_ABLATE 0
 #endif
 
+#include "tail_chain.cuh"
+
 namespace {
 
-using namespace m2t_tail;
-using namespace m2t_ptx;
+using namespace m2t_tail_chain;  // the tile, its slot order, block_product
 
-constexpr int FTR = 8, FTW = 16;          // LR rows, columns of a tile
-constexpr int FHW = FTW + 2;              // halo width
-constexpr int FNPIX = (FTR + 2) * FHW;    // 180 halo pixels
-constexpr int FNP = 192;                  // padded to 12 m16 row tiles
-constexpr int FWARPS = FNP / 16;          // one warp per row tile
-constexpr int FTHREADS = FWARPS * 32;     // 384
-constexpr int NOUT = FTR * FTW;           // 128 output pixels
-static_assert(NOUT + 2 * FTW + 2 * FTR + 4 == FNPIX && FNPIX <= FNP,
-              "tile pixels, ring rows, ring columns and corners fill the slots");
 constexpr int TCOLS = 27;                 // tap * 3 + colour
 constexpr int TLD = FNP + 4;              // T's pixel pitch: 2 * TLD % 32 == 8
-constexpr int W3LD = 40;                  // w3's row pitch (32 columns + 8)
 constexpr int OPITCH = 49;                // staging pitch, floats per pixel
 // gather items (output pixel, phase) of a thread: 128 * 16 over 384 threads
 constexpr int GITEMS = (NOUT * 16 + FTHREADS - 1) / FTHREADS;
@@ -110,25 +98,6 @@ __host__ __device__ inline FwdLayout fwd_layout(int nf, int scale) {
   l.tab = l.o + NOUT * OPITCH * 4;
   l.total = l.tab + (4 * 16 * 9 + 4 * 16) * 4;
   return l;
-}
-
-// Row r of the 192 -> its pixel in the 10x18 halo (row * FHW + column), or
-// -1 for the 12 pad rows. The 128 tile pixels come first (warps 0..7), then
-// the ring by kind: top row, bottom row (warps 8, 9), left and right column
-// (the two halves of warp 10), the four corners (warp 11). A ring pixel
-// feeds only the phase blocks that face the tile, so the warps that hold
-// the ring skip the others, and the schedulers each have one of them.
-__device__ __forceinline__ int slot_pixel(int r) {
-  if (r < NOUT) return (r / FTW + 1) * FHW + r % FTW + 1;
-  r -= NOUT;
-  if (r < FTW) return r + 1;
-  if (r < 2 * FTW) return (FTR + 1) * FHW + r - FTW + 1;
-  r -= 2 * FTW;
-  if (r < FTR) return (r + 1) * FHW;
-  if (r < 2 * FTR) return (r - FTR + 1) * FHW + FHW - 1;
-  r -= 2 * FTR;
-  if (r < 4) return (r / 2) * (FTR + 1) * FHW + (r % 2) * (FHW - 1);
-  return -1;
 }
 
 // Bit blk is set if some output pixel of the tile reads phase block blk of
@@ -164,29 +133,6 @@ __device__ __forceinline__ void load_y(const TailArgs& a, int b, int r0, int c0,
         ok ? a.y + (((size_t)b * a.H + Y) * a.W + X) * NF + v * 8 : a.y;
     cp_async16(dst + (row * YLD + v * 8) * 2, src, ok ? 16 : 0);
   }
-}
-
-// acc (16 rows x NF columns) = A (16 x NF, fragments) * B (NF x NF slice in
-// shared memory, [k][n] with row pitch ldb bytes; bsm is this lane's
-// ldmatrix address in the slice's first 16x16 tile).
-template <int NKT>
-__device__ __forceinline__ void block_product(float (&acc)[2 * NKT][4],
-                                              const uint32_t (&af)[NKT][4],
-                                              uint32_t bsm, int ldb) {
-#pragma unroll
-  for (int nt = 0; nt < 2 * NKT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  if (M2T_K2_ABLATE & 4) return;
-#pragma unroll
-  for (int kk = 0; kk < NKT; ++kk)
-#pragma unroll
-    for (int n2 = 0; n2 < NKT; ++n2) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, bsm + kk * 16 * ldb + n2 * 32);
-      mma_bf16(acc[2 * n2], af[kk], fb[0], fb[1]);
-      mma_bf16(acc[2 * n2 + 1], af[kk], fb[2], fb[3]);
-    }
 }
 
 __device__ __forceinline__ float act(float v) {

@@ -8,43 +8,63 @@
 // dy (B, H, W, nf), dw0/db0, dw1/db1 (the permuted stage weights), dw3
 // (3, 3, nf, 3) and the spliced reflect-ring slices dlc/drc/dtop/dbot.
 //
-// Two passes:
+// Two passes and a reduction:
 //   pass 0 is K2's own kernel (m2t_tail_band_gm in tail_band.cu) run with
 //     the cotangent: it recomputes the pre-clamp outputs exactly as the
 //     forward did (so the clip mask is K2's bit for bit) and writes
-//     gm = g * [0 <= out <= rgb_range] (f32) — torch.clamp's and
-//     jnp.clip's gradient rule;
-//   pass 1, this file's kernel, per 4x16 LR tile and per chunk of 4 phase
-//     blocks: recomputes the chunk's phase band over the 6x18 halo (WMMA
-//     stage products, tail_common.cuh), accumulates dw3 = sum ph * gm straight from K's structure
-//     (no dense dK), forms d(phase band) for the LR pixels the tile owns by
-//     the transposed structured conv (a 3x3 gm halo suffices), routes the
-//     ring pixels' share to the edge gradients, and walks the GELU' and
-//     stage transposes back to dy, dw0/db0, dw1/db1.
-// Every LR pixel of the frame and of its 1-px ring belongs to exactly one
-// tile (the ring to the tile it borders, corners to the corner tile), so dy
-// and the edge gradients need no overlap-add. Weight gradients leave as
-// per-tile partials and are summed in a fixed order by reduce_rows
-// (cftm_branch_bwd.cu): no atomics, runs repeat exactly.
+//     gm = g * [0 <= out <= rgb_range] (f32): torch.clamp's and jnp.clip's
+//     gradient rule;
+//   pass 1, this file's kernel, walks K2's 8x16 LR tiles. For one phase
+//     block blk of a pixel s, with GT[s, tap*3 + c] = gm[s - off(tap), q(tap),
+//     c] (every tap of a source block is read by exactly one output phase q
+//     of one LR neighbour, so GT is a gather through a list of nine taps,
+//     the transpose of K2's tap lists):
+//       d(ph)[s, blk, :] = GT[s] w3^T         dw3 += ph[s, blk, :]^T GT[s]
+//     and then, through GELU' on the accumulator registers, the stage
+//     transposes (x4: d(og) = d(ph) gelu'(og), dw1 += h^T d(og), dh0 =
+//     d(og) w1^T, d(pre0) = dh0 gelu'(pre0); then dw0 += y^T d(pre0), dy +=
+//     d(pre0) w0^T). Every pixel of the frame and of its 1-px ring belongs to
+//     one tile (the ring to the tile it borders); a ring pixel's d(ph) is its
+//     edge gradient.
+//   reduce: the partial sums, in the fixed tree order of cftm_branch_bwd.cu's
+//     reduction. No atomics on floats: runs repeat exactly.
 //
-// What bounds it on the card: pass 1's stage transposes (~5*nf*4nf MACs
-// per LR pixel and phase group at x4) and its shared memory (190,784 bytes
-// at nf = 64: the recompute's 109,888 plus the gm halo, one chunk of d(phase band) in
-// bf16, the tile's stage-0 rows and the stage-0 adjoint in f32), which
-// leaves one block per SM and little L1. Design: once the phase band is
-// consumed its buffer stages the chunk's stage weights (read from L2 in
-// the inner loops, they made the kernel latency-bound); the three x4
-// stage-1 products (og, dw1, dh0) run on the tensor cores through WMMA
-// (bf16 in, f32 accumulate, d(phase band) rounded to bf16 as the JAX
-// backward rounds it); the structured-conv adjoint, dw3 and the stage-0
-// transposes stay on the CUDA cores, each thread owning several channels.
+// What bounded the first version on the card (PERF.md has its ablation):
+// five parts of 0.4 ms each: the recompute over the whole halo on WMMA with
+// an f32 staging tile, the conv adjoint, dw3 and the stage-0 transposes on
+// the CUDA cores with every (offset, tap) pair tested a thread, 190 KB a
+// block, and weight partials of 66 KB a tile summed serially a thread.
+//
+// Design. A thread block has a ROLE: one phase block blk = 4g + j (x4: stage-0
+// group g, stage-1 block j; x2 / x3: the stage-0 block), fixed for its life;
+// the blocks of a role share the frame's tiles (a persistent grid of roles x
+// blocks-a-role). The role's weight slices (w0's and w1's nf columns, w3) sit
+// in shared memory, staged once (cp.async). A tile's 128 pixels are 8 row
+// tiles of 16, one a warp, and a warp takes its 16 pixels through the whole
+// chain in registers, as K2 does (tail_chain.cuh): y -> pre0 -> h -> og ->
+// ph with GELU and GELU' taken from one erff on the accumulators; GT is
+// gathered from the gm halo (bf16: gm is a bf16 cotangent or zero) straight
+// into A fragments; d(ph) = GT w3^T lands in the accumulator layout of og, so
+// d(og) is a register product and feeds dh0 = d(og) w1^T as A fragments, and
+// so on down to dy, which leaves as the role's partial plane. Only what the
+// weight gradients need crosses shared memory, once, in bf16: h, d(og),
+// d(pre0), ph and GT of the tile. After one block barrier the weight
+// gradients' 16x16 output units (dw1 | db1 and dw0 | db0 through a column of
+// ones, dw3) are spread over the warps and accumulated in registers over all
+// the block's tiles: one partial a block, written at the end. The stage-0
+// recompute is repeated by the four roles of a group (a fifth more products
+// and GELUs), the price of accumulators that fit registers.
+// Ring pixels (frame border tiles only) take ph from the spliced edge values,
+// no products; their d(ph) goes to the edge gradients.
+//
 // GELU' uses erff (exact); the JAX backward uses its polynomial erf
-// (|difference| <= 1e-4).
+// (|difference| <= 1e-4). mma.sync and not wgmma: 16 pixels a warp keep the
+// chain in registers, as in K2.
 
-#include "tail_common.cuh"
+#include "tail_chain.cuh"
 
-extern "C" int m2t_reduce_rows(const void* part, int n, long long len,
-                               void* out, void* stream);
+extern "C" int m2t_reduce_batched(const void* part, int nbatch, int n,
+                                  long long len, void* out, void* stream);
 extern "C" int m2t_tail_band_gm(const void* y, const void* w0, const void* b0,
                                 const void* w1, const void* b1, const void* w3,
                                 const void* lc, const void* rc, const void* top,
@@ -53,355 +73,522 @@ extern "C" int m2t_tail_band_gm(const void* y, const void* w0, const void* b0,
                                 float rgb_range, void* stream);
 extern "C" int m2t_tail_band_smem(int nf, int scale);
 
+// Timing ablation (tools/kernel_ablation.py builds it; results are wrong by
+// design): M2T_K2B_ABLATE is a set of bits, each compiling a part of the
+// second pass out: 1 the recompute of the phase band, 2 dw3, 4 the
+// structured-conv adjoint (GT and d(ph)), 8 the stage-1 products (x4),
+// 16 the stage-0 transposes, 32 the reductions, 64 the first pass (K2's
+// kernel).
+#ifndef M2T_K2B_ABLATE
+#define M2T_K2B_ABLATE 0
+#endif
+#define M2T_K2B_OFF(bit) ((M2T_K2B_ABLATE & (bit)) != 0)
+
 namespace {
 
-using namespace m2t_tail;
+using namespace m2t_tail_chain;
 
-constexpr int MAX_DY = 16;  // dy items per thread: 64 * nf / THREADS, nf <= 64
-constexpr int MAX_W3 = 2;   // dw3 items (tap, channel pair) a thread: 9 * nf / 2 / THREADS
-constexpr int GMS = 48;     // f32 per gm halo row (P*3 <= 48)
+constexpr int BT = 256;       // threads: a warp a row tile of the 128 pixels
+constexpr int BW = BT / 32;
+constexpr int GMP = 56;       // gm halo pitch, bf16 (P*3 <= 48, + 8)
+constexpr int GTLD = 40;      // GT pitch, bf16 (27 columns in 32, + 8)
 
 struct BwdArgs {
   TailArgs f;                    // K2's operands (out unused)
-  const bf16* g;                 // (B, H, W, P*3) cotangent, phase layout
-  float* gm;                     // (B, H, W, P*3) clip-masked cotangent
-  float* part0;                  // (tiles, nf*cp0 + cp0) dw0 | db0
-  float* part1;                  // (tiles*4, nf*4nf + 4nf) dw1 | db1, x4
-  float* part3;                  // (tiles, 27*nf) dw3
-  float* dy;                     // (B, H, W, nf)
+  const float* gm;               // (B, H, W, P*3) clip-masked cotangent
+  float* partA;                  // last stage's dw | db a block, (nf+1) x nf
+  float* partB;                  // x4: the share of dw0 | db0 a block
+  float* part3;                  // (blocks, 27*nf) dw3 shares
+  float* dy_part;                // (roles, B, H, W, nf)
   float *dlc, *drc;              // (B, H+2, P*nf), zeroed by the caller
   float *dtop, *dbot;            // (B, W+2, P*nf)
 };
 
-// bf16 row stride of the chunk's d(phase band) and of the staged w1
-__host__ __device__ inline int dp_ld(int nf) { return 4 * nf + 8; }
-
 struct BwdLayout {
-  size_t gm, dph, hs, dpre, total;
+  int h, w0, w1, w3, b0, b1, gm, dog, dpre, ph, gt, tab, total;
 };
 
-// [K2's layout] [gm halo f32] [d(phase band) chunk bf16, NT x dp_ld]
-// [the tile's stage-0 rows bf16, NT x a_ld] [d(stage-0) f32, NT x nf]
+// [y 128 x (nf+24)] [h likewise] [w0 slice nf x (nf+8)] [w1 slice] [w3 padded]
+// [b0 | b1 f32] [gm halo bf16] [d(og)] [d(pre0)] [ph 192 rows] [GT 192 rows]
+// [tap table]; y and h carry a column of ones at nf for the bias gradients
 __host__ __device__ inline BwdLayout bwd_layout(int nf) {
   BwdLayout l;
-  l.gm = layout(nf).total;
-  l.dph = l.gm + (size_t)NP * GMS * 4;
-  l.hs = l.dph + (size_t)TR * TW * dp_ld(nf) * 2;
-  l.dpre = l.hs + (size_t)TR * TW * a_ld(nf) * 2;
-  l.total = l.dpre + (size_t)TR * TW * nf * 4;
+  l.h = NOUT * (nf + 24) * 2;
+  l.w0 = 2 * l.h;
+  l.w1 = l.w0 + nf * (nf + 8) * 2;
+  l.w3 = l.w1 + nf * (nf + 8) * 2;
+  l.b0 = l.w3 + nf * W3LD * 2;
+  l.b1 = l.b0 + nf * 4;
+  l.gm = l.b1 + nf * 4;
+  l.dog = l.gm + FNPIX * GMP * 2;
+  l.dpre = l.dog + NOUT * (nf + 8) * 2;
+  l.ph = l.dpre + NOUT * (nf + 8) * 2;
+  l.gt = l.ph + FNP * (nf + 8) * 2;
+  l.tab = l.gt + FNP * GTLD * 2;
+  l.total = l.tab + 128;
   return l;
 }
 
-__device__ __forceinline__ float gelu_grad(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * 0.3989422804014327f * expf(-0.5f * v * v);
+// gelu(v) and gelu'(v) from one erff
+__device__ __forceinline__ void gelu_both(float v, float& act, float& grad) {
+  const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
+  act = v * cdf;
+  grad = cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
 }
 
-__device__ __forceinline__ float ldf(const bf16* p) {
-  return __bfloat162float(*p);
+// acc (16 x NF) = A (16 x NF, fragments) * B^T, B (NF x NF) in shared memory
+// as [n][k] with row pitch ldb bytes; bsm is this lane's ldmatrix address
+// (row krow, column kcol) in B's first 16x16 tile.
+template <int NKT>
+__device__ __forceinline__ void block_product_nt(float (&acc)[2 * NKT][4],
+                                                 const uint32_t (&af)[NKT][4],
+                                                 uint32_t bsm, int ldb) {
+#pragma unroll
+  for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < NKT; ++n2) {
+      uint32_t fb[4];
+      ldmatrix_x4(fb, bsm + n2 * 16 * ldb + kk * 32);
+      mma_bf16(acc[2 * n2], af[kk], fb[0], fb[1]);
+      mma_bf16(acc[2 * n2 + 1], af[kk], fb[2], fb[3]);
+    }
 }
 
-
-// phase block index -> (pi, pj), the inverse of phase_block
-__device__ __forceinline__ void block_phase(int blk, int s, int& pi, int& pj) {
-  if (s == 4) {
-    const int grp = blk / 4, in = blk % 4;
-    pi = (grp / 2) * 2 + in / 2;
-    pj = (grp % 2) * 2 + in % 2;
-  } else {
-    pi = blk / s;
-    pj = blk % s;
-  }
+// A fragments (16 x NF, bf16) -> rows `row0 + g8 (+ 8)` of a [row][col] buffer
+template <int NKT>
+__device__ __forceinline__ void store_fragments(const uint32_t (&fr)[NKT][4],
+                                                bf16* buf, int ld, int row0,
+                                                int g8, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<uint32_t*>(buf + (row0 + g8 + 8 * hr) * ld + kk * 16 +
+                                     h * 8 + 2 * t4) = fr[kk][2 * h + hr];
 }
 
-__global__ void __launch_bounds__(THREADS)
-tail_band_bwd_kernel(BwdArgs a) {
+template <int NF>
+__global__ void __launch_bounds__(BT, 1) tail_band_bwd_kernel(BwdArgs a) {
+  constexpr int NKT = NF / 16, YLD = NF + 24, LDB = NF + 8, CV = NF / 8;
+  constexpr int NA = (NKT + 1) * NKT;  // units of one stage's dw | db
+  constexpr int MAXU = (2 * NA + 2 * NKT + BW - 1) / BW;
   const TailArgs& f = a.f;
-  const int nf = f.nf, s = f.scale, P = s * s, cp = P * nf;
-  const int cp0 = s == 4 ? 4 * nf : cp;
-  const int ntw = (f.W + TW - 1) / TW;
-  const int b = blockIdx.y;
-  const int r0 = (blockIdx.x / ntw) * TR, c0 = (blockIdx.x % ntw) * TW;
-  const size_t tile = (size_t)b * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x;
+  const int s = f.scale, P = s * s, P3 = P * 3, cp = P * NF;
+  const int cp0 = s == 4 ? 4 * NF : cp;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int lrow = ldm_row(lane), lcol = ldm_col(lane);
+  const int krow = (lane & 7) + (lane >> 4) * 8, kcol = ((lane >> 3) & 1) * 8;
+  // the role: phase block blk; x4: stage-0 group grp, stage-1 block jb
+  const int blk = blockIdx.x % P, idx = blockIdx.x / P, npr = gridDim.x / P;
+  const int grp = blk / 4, jb = blk % 4;
+  const int w0col = s == 4 ? grp * NF : blk * NF;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout(nf);
+  const BwdLayout lay = bwd_layout(NF);
+  bf16* ys = reinterpret_cast<bf16*>(smem);
+  bf16* hs = reinterpret_cast<bf16*>(smem + lay.h);
+  bf16* w3s = reinterpret_cast<bf16*>(smem + lay.w3);
+  float* b0f = reinterpret_cast<float*>(smem + lay.b0);
+  float* b1f = reinterpret_cast<float*>(smem + lay.b1);
+  bf16* gms = reinterpret_cast<bf16*>(smem + lay.gm);
+  bf16* dogs = reinterpret_cast<bf16*>(smem + lay.dog);
+  bf16* dpres = reinterpret_cast<bf16*>(smem + lay.dpre);
+  bf16* phs = reinterpret_cast<bf16*>(smem + lay.ph);
+  bf16* gts = reinterpret_cast<bf16*>(smem + lay.gt);
+  int* tab = reinterpret_cast<int*>(smem + lay.tab);  // [tap]: q*3, yo, xo
+  const uint32_t sm0 = smem_u32(smem);
 
-  const BwdLayout bl = bwd_layout(nf);
-  const bf16* ys = reinterpret_cast<const bf16*>(smem);
-  const bf16* h0 = reinterpret_cast<const bf16*>(smem + lay.h0);
-  const bf16* ph = reinterpret_cast<const bf16*>(smem + lay.ph);  // then w0s/w1s
-  const float* w3 = reinterpret_cast<const float*>(smem + lay.w3);
-  const int* info = reinterpret_cast<const int*>(smem + lay.info);
-  float* gmh = reinterpret_cast<float*>(smem + bl.gm);
-  bf16* dph = reinterpret_cast<bf16*>(smem + bl.dph);
-  bf16* hs = reinterpret_cast<bf16*>(smem + bl.hs);
-  float* dpre = reinterpret_cast<float*>(smem + bl.dpre);
-  const int warp = tid / 32, lane = tid % 32;
-  float* stg = reinterpret_cast<float*>(smem + lay.stage) + warp * 16 * SLD;
-  const int lda = a_ld(nf), ldph = ph_ld(nf), DPL = dp_ld(nf);
-  const int NT = TR * TW;
-  auto hrow = [](int p) { return (p / TW + 1) * HW_ + p % TW + 1; };
-
-  tile_load(f, lay, smem, b, r0, c0);
-  __syncthreads();
-  for (int e = tid; e < NP * GMS; e += THREADS) {
-    const int pix = e / GMS, k = e % GMS;
-    float v = 0.f;
-    if (info[pix * 3] == 0 && k < P * 3)
-      v = a.gm[(((size_t)b * f.H + info[pix * 3 + 1]) * f.W +
-                info[pix * 3 + 2]) * P * 3 + k];
-    gmh[e] = v;
+  // once per block: the role's weight slices, w3, the biases, the ones
+  // columns and the tap list of its phase block
+  for (int i = tid; i < NF * CV; i += BT) {
+    const int row = i / CV, v = i % CV;
+    cp_async16(sm0 + lay.w0 + (row * LDB + v * 8) * 2,
+               f.w0 + (size_t)row * cp0 + w0col + v * 8, 16);
+    if (s == 4)
+      cp_async16(sm0 + lay.w1 + (row * LDB + v * 8) * 2,
+                 f.w1 + (size_t)row * 4 * NF + jb * NF + v * 8, 16);
   }
-  float dyacc[MAX_DY], w3acc[MAX_W3][6];
-#pragma unroll
-  for (int m = 0; m < MAX_DY; ++m) dyacc[m] = 0.f;
-#pragma unroll
-  for (int m = 0; m < MAX_W3; ++m)
-    for (int u = 0; u < 6; ++u) w3acc[m][u] = 0.f;
+  cp_async_commit();
+  for (int i = tid; i < NF * 32; i += BT) {
+    const int ch = i / 32, col = i % 32;
+    w3s[ch * W3LD + col] =
+        col < 27 ? f.w3[((col / 3) * NF + ch) * 3 + col % 3] : __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < NF; i += BT) {
+    b0f[i] = __bfloat162float(f.b0[w0col + i]);
+    b1f[i] = s == 4 ? __bfloat162float(f.b1[jb * NF + i]) : 0.f;
+  }
+  for (int i = tid; i < NOUT * 16; i += BT) {
+    const bf16 v = __float2bfloat16(i % 16 == 0 ? 1.f : 0.f);
+    ys[(i / 16) * YLD + NF + i % 16] = v;
+    hs[(i / 16) * YLD + NF + i % 16] = v;
+  }
+  // tap (dr, dc) reads this block of the neighbour at (yo, xo) for exactly
+  // one output phase q: GT[s, tap] = gm[s - (yo, xo), q]
+  if (tid < 9) {
+    const int dr = tid / 3 - 1, dc = tid % 3 - 1;
+    int fq = 0, fy = 0, fx = 0;
+    for (int q = 0; q < P; ++q) {
+      int yo, xo;
+      if (tap_source(q / s, q % s, dr, dc, s, yo, xo) == blk) {
+        fq = q; fy = yo; fx = xo;
+      }
+    }
+    tab[tid * 3] = fq * 3;
+    tab[tid * 3 + 1] = fy;
+    tab[tid * 3 + 2] = fx;
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int g = 0; g < (P + 3) / 4; ++g) {
-    const int nblk = min(4, P - 4 * g), ncol = nblk * nf;
-    phase_chunk(f, lay, smem, g, b);
-    __syncthreads();
-
-    // dw3[tap][ch][c] += sum over the tile's outputs and phases whose tap
-    // reads this chunk: ph[source] * gm; a thread owns one tap and two
-    // channels, all three colours
+  // this lane's GT columns k = kk*16 + h*8 + 2*t4 + e, packed: the gm column
+  // q*3 + c in the low byte, (yo + 1) and (xo + 1) above it; -1 beyond 27
+  int gsel[2][2][2];
 #pragma unroll
-    for (int m = 0; m < MAX_W3; ++m) {
-      const int item = tid + THREADS * m;
-      if (item >= 9 * nf / 2) break;
-      const int tap = item / (nf / 2), ch = (item % (nf / 2)) * 2;
-      const int dr = tap / 3 - 1, dc = tap % 3 - 1;
-      for (int q = 0; q < P; ++q) {
-        int yo, xo;
-        const int src = tap_source(q / s, q % s, dr, dc, s, yo, xo) - 4 * g;
-        if (src < 0 || src >= nblk) continue;
-        for (int p = 0; p < NT; ++p) {
-          const int hp = hrow(p);
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              ph + (hp + yo * HW_ + xo) * ldph + src * nf + ch));
-          const float* gq = gmh + hp * GMS + q * 3;
-          for (int c = 0; c < 3; ++c) {
-            w3acc[m][c] += v.x * gq[c];
-            w3acc[m][3 + c] += v.y * gq[c];
-          }
-        }
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = kk * 16 + h * 8 + 2 * t4 + e;
+        gsel[kk][h][e] = k < 27 ? (tab[(k / 3) * 3] + k % 3) |
+                                      ((tab[(k / 3) * 3 + 1] + 1) << 8) |
+                                      ((tab[(k / 3) * 3 + 2] + 1) << 12)
+                                : -1;
       }
-    }
 
-    // d(phase band) of the chunk's blocks at the pixels this tile owns:
-    // interior pixels into dph (zero where the tile runs past the frame),
-    // ring pixels into the edge gradients. A source block (pi, pj) is read
-    // by exactly three (LR offset, tap, phase) triples per axis.
-    const int nq4 = nf / 4;  // a thread owns four consecutive channels
-    for (int e = tid; e < NPIX * nblk * nq4; e += THREADS) {
-      const int pix = e / (nblk * nq4), bc = (e / nq4) % nblk;
-      const int ch = (e % nq4) * 4, col = bc * nf + ch;
-      const int cls = info[pix * 3], Y = info[pix * 3 + 1], X = info[pix * 3 + 2];
-      const int hr = pix / HW_, hc = pix % HW_;
-      const bool in_tile = hr >= 1 && hr <= TR && hc >= 1 && hc <= TW;
-      const int Yc = min(max(Y, 0), f.H - 1), Xc = min(max(X, 0), f.W - 1);
-      const bool owned = cls != 5 && Yc >= r0 && Yc < r0 + TR && Xc >= c0 &&
-                         Xc < c0 + TW;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (owned) {
-        int pi, pj;
-        block_phase(4 * g + bc, s, pi, pj);
-        int ro[3], rd[3], ri[3], co[3], cd[3], cj[3], nr = 0, nc = 0;
-        for (int o = -1; o <= 1; ++o)
-          for (int d = -1; d <= 1; ++d) {
-            const int i = pi + o * s - d, j = pj + o * s - d;
-            if (i >= 0 && i < s && nr < 3) { ro[nr] = o; rd[nr] = d; ri[nr++] = i; }
-            if (j >= 0 && j < s && nc < 3) { co[nc] = o; cd[nc] = d; cj[nc++] = j; }
-          }
-        for (int u = 0; u < nr; ++u) {
-          const int oh = hr - ro[u];
-          if (oh < 0 || oh >= TR + 2) continue;
-          for (int w = 0; w < nc; ++w) {
-            const int ow = hc - co[w];
-            if (ow < 0 || ow >= HW_) continue;
-            const float* gq = gmh + (oh * HW_ + ow) * GMS + (ri[u] * s + cj[w]) * 3;
-            const float4* wt = reinterpret_cast<const float4*>(
-                w3 + ((rd[u] + 1) * 3 + cd[w] + 1) * nf * 3 + ch * 3);
-            const float4 w0 = wt[0], w1 = wt[1], w2 = wt[2];
-            const float g0 = gq[0], g1 = gq[1], g2 = gq[2];
-            v[0] += g0 * w0.x + g1 * w0.y + g2 * w0.z;
-            v[1] += g0 * w0.w + g1 * w1.x + g2 * w1.y;
-            v[2] += g0 * w1.z + g1 * w1.w + g2 * w2.x;
-            v[3] += g0 * w2.y + g1 * w2.z + g2 * w2.w;
-          }
-        }
-        const size_t chn = (size_t)(4 * g + bc) * nf + ch;
-        float* edge = cls == 1 ? a.dtop + ((size_t)b * (f.W + 2) + X + 1) * cp
-                    : cls == 2 ? a.dbot + ((size_t)b * (f.W + 2) + X + 1) * cp
-                    : cls == 3 ? a.dlc + ((size_t)b * (f.H + 2) + Y + 1) * cp
-                    : cls == 4 ? a.drc + ((size_t)b * (f.H + 2) + Y + 1) * cp
-                               : nullptr;
-        if (edge)
-          for (int d = 0; d < 4; ++d) edge[chn + d] = v[d];
-      }
-      if (in_tile)
-        for (int d = 0; d < 4; ++d)
-          dph[((hr - 1) * TW + hc - 1) * DPL + col + d] =
-              __float2bfloat16(cls == 0 ? v[d] : 0.f);
-    }
-    __syncthreads();
+  const int nth = (f.H + FTR - 1) / FTR, ntw = (f.W + FTW - 1) / FTW;
+  const int per_img = nth * ntw, ntiles = f.B * per_img;
+  float wacc[MAXU][2][4];
+#pragma unroll
+  for (int i = 0; i < MAXU; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) wacc[i][nt][e] = 0.f;
+  const int nB = s == 4 ? NA : 0, nunits = NA + nB + 2 * NKT;
 
-    // The phase band is consumed: its buffer now stages this chunk's stage
-    // weights: w0's columns of the chunk (rows padded by one word, so that
-    // column walks are free of bank conflicts) and at x4 all of w1 (rows
-    // padded for the tensor cores), with the tile's stage-0 rows copied
-    // out of the halo into rows the tensor cores can load.
-    const int col0 = s == 4 ? g * nf : 4 * g * nf;  // first w0 column
-    const int nc0 = s == 4 ? nf : ncol;             // w0 columns of the chunk
-    const int ld0s = nc0 + 2, ld1s = DPL;
-    bf16* w0s = reinterpret_cast<bf16*>(smem + lay.ph);
-    bf16* w1s = w0s + nf * ld0s;  // 32-byte aligned: nf is a multiple of 16
-    for (int e = tid; e < nf * nc0; e += THREADS)
-      w0s[(e / nc0) * ld0s + e % nc0] = f.w0[(e / nc0) * cp0 + col0 + e % nc0];
-    if (s == 4) {
-      for (int e = tid; e < nf * 4 * nf; e += THREADS)
-        w1s[(e / (4 * nf)) * ld1s + e % (4 * nf)] = f.w1[e];
-      for (int e = tid; e < NT * nf; e += THREADS)
-        hs[(e / nf) * lda + e % nf] = h0[hrow(e / nf) * lda + e % nf];
-    }
-    __syncthreads();
+  for (int tile = idx; tile < ntiles; tile += npr) {
+    const int b = tile / per_img, rem = tile % per_img;
+    const int r0 = (rem / ntw) * FTR, c0 = (rem % ntw) * FTW;
+    const bool border = r0 == 0 || c0 == 0 || r0 + FTR >= f.H || c0 + FTW >= f.W;
+    __syncthreads();  // the previous tile's buffers are consumed
 
-    if (s == 4) {
-      // d(og) = dph * gelu'(og), og = hs w1 + b1 on the tensor cores, to
-      // bf16 in place (the JAX backward rounds d(og) to bf16 too)
-      for (int t = warp; t < (NT / 16) * (4 * nf / 16); t += WARPS) {
-        const int rt = t / (4 * nf / 16), ct = t % (4 * nf / 16);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < nf / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, hs + rt * 16 * lda + kk * 16, lda);
-          wmma::load_matrix_sync(fb, w1s + kk * 16 * ld1s + ct * 16, ld1s);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(stg, acc, SLD, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int p = rt * 16 + e / 16, n = ct * 16 + e % 16;
-          bf16* d = dph + p * DPL + n;
-          *d = __float2bfloat16(ldf(d) * gelu_grad(stg[(e / 16) * SLD + e % 16] +
-                                                   ldf(f.b1 + n)));
-        }
-        __syncwarp();
-      }
-      __syncthreads();
-      // on the tensor cores: dw1 = hs^T d(og) straight into this group's
-      // partial, and dh0 = d(og) w1^T with dpre0 = dh0 * gelu'(y w0 + b0)
-      float* p1 = a.part1 + (tile * 4 + g) * (size_t)(nf * 4 * nf + 4 * nf);
-      const int n1 = (nf / 16) * (4 * nf / 16), n2 = (NT / 16) * (nf / 16);
-      for (int t = warp; t < n1 + n2; t += WARPS) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        if (t < n1) {
-          const int rt = t / (4 * nf / 16), ct = t % (4 * nf / 16);
-          for (int kk = 0; kk < NT / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fa, hs + kk * 16 * lda + rt * 16, lda);
-            wmma::load_matrix_sync(fb, dph + kk * 16 * DPL + ct * 16, DPL);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(p1 + rt * 16 * 4 * nf + ct * 16, acc, 4 * nf,
-                                  wmma::mem_row_major);
-        } else {
-          const int rt = (t - n1) / (nf / 16), ct = (t - n1) % (nf / 16);
-          for (int kk = 0; kk < 4 * nf / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, dph + rt * 16 * DPL + kk * 16, DPL);
-            wmma::load_matrix_sync(fb, w1s + ct * 16 * ld1s + kk * 16, ld1s);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(stg, acc, SLD, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int p = rt * 16 + e / 16, k = ct * 16 + e % 16;
-            const bf16* yr = ys + hrow(p) * lda;
-            float pre = ldf(f.b0 + col0 + k);
-            for (int j = 0; j < nf; ++j) pre += ldf(yr + j) * ldf(w0s + j * ld0s + k);
-            dpre[p * nf + k] = stg[(e / 16) * SLD + e % 16] * gelu_grad(pre);
-          }
-          __syncwarp();
-        }
-      }
-      for (int n = tid; n < 4 * nf; n += THREADS) {  // db1
-        float sum = 0.f;
-        for (int p = 0; p < NT; ++p) sum += ldf(dph + p * DPL + n);
-        p1[nf * 4 * nf + n] = sum;
+    // y of the 128 tile pixels (zero off the frame) and the gm halo in bf16
+    for (int i = tid; i < NOUT * CV; i += BT) {
+      const int row = i / CV, v = i % CV;
+      const int Y = r0 + row / FTW, X = c0 + row % FTW;
+      const bool ok = Y < f.H && X < f.W;
+      const bf16* src = ok ? f.y + (((size_t)b * f.H + Y) * f.W + X) * NF + v * 8 : f.y;
+      cp_async16(sm0 + (row * YLD + v * 8) * 2, src, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    if (P3 % 4 == 0) {  // x2, x4: 16-byte loads
+      const int nv = P3 / 4;
+      for (int i = tid; i < FNPIX * nv; i += BT) {
+        const int pix = i / nv, k = (i % nv) * 4;
+        const int Y = r0 - 1 + pix / FHW, X = c0 - 1 + pix % FHW;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (Y >= 0 && Y < f.H && X >= 0 && X < f.W)
+          v = *reinterpret_cast<const float4*>(
+              a.gm + (((size_t)b * f.H + Y) * f.W + X) * P3 + k);
+        *reinterpret_cast<uint2*>(gms + pix * GMP + k) =
+            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
       }
     } else {
-      // stage 0 is the phase band: d(pre) = dph * gelu'(y w0 + b0), in place
-      for (int e = tid; e < NT * ncol; e += THREADS) {
-        const int p = e / ncol, n = e % ncol;
-        const bf16* yr = ys + hrow(p) * lda;
-        float pre = ldf(f.b0 + col0 + n);
-        for (int j = 0; j < nf; ++j) pre += ldf(yr + j) * ldf(w0s + j * ld0s + n);
-        bf16* d = dph + p * DPL + n;
-        *d = __float2bfloat16(ldf(d) * gelu_grad(pre));
+      for (int i = tid; i < FNPIX * P3; i += BT) {
+        const int pix = i / P3, k = i % P3;
+        const int Y = r0 - 1 + pix / FHW, X = c0 - 1 + pix % FHW;
+        float v = 0.f;
+        if (Y >= 0 && Y < f.H && X >= 0 && X < f.W)
+          v = a.gm[(((size_t)b * f.H + Y) * f.W + X) * P3 + k];
+        gms[pix * GMP + k] = __float2bfloat16(v);
       }
     }
+    cp_async_wait<0>();
     __syncthreads();
-    // d(stage-0 pre-activation) at tile pixel p, chunk column n
-    auto dstage0 = [&](int p, int n) {
-      return s == 4 ? dpre[p * nf + n] : ldf(dph + p * DPL + n);
-    };
 
-    // dw0 | db0 of these columns, and dy += d(pre0) w0^T
-    float* p0 = a.part0 + tile * (size_t)(nf * cp0 + cp0);
-    for (int e = tid; e < nf * nc0 + nc0; e += THREADS) {
-      float sum = 0.f;
-      if (e < nf * nc0) {
-        const int j = e / nc0, n = e % nc0;
-        for (int p = 0; p < NT; ++p)
-          sum += ldf(ys + hrow(p) * lda + j) * dstage0(p, n);
-        p0[j * cp0 + col0 + n] = sum;
+    // pass 0: the warp's 16 tile pixels; pass 1 (border tiles, warps 0..3):
+    // a row tile of the ring slots
+    for (int pass = 0; pass < (border && warp < 4 ? 2 : 1); ++pass) {
+      const int rt = pass == 0 ? warp : BW + warp;
+      // this lane's two rows: halo position, kind (0 interior, 1 owned ring,
+      // 2 dead), the edge slice of a ring pixel
+      int hy[2], hx[2], kind[2], Yf[2], Xf[2];
+      const float* eptr[2] = {nullptr, nullptr};
+      float* gptr[2] = {nullptr, nullptr};
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int hix = slot_pixel(rt * 16 + g8 + 8 * hr);
+        hy[hr] = hix < 0 ? 0 : hix / FHW;
+        hx[hr] = hix < 0 ? 0 : hix % FHW;
+        const int Y = r0 - 1 + hy[hr], X = c0 - 1 + hx[hr];
+        Yf[hr] = Y;
+        Xf[hr] = X;
+        int cls = 0;
+        if (hix < 0 || Y < -1 || Y > f.H || X < -1 || X > f.W) cls = 5;
+        else if (Y == -1) cls = 1;
+        else if (Y == f.H) cls = 2;
+        else if (X == -1) cls = 3;
+        else if (X == f.W) cls = 4;
+        kind[hr] = 2;
+        if (cls == 0) {
+          if (pass == 0) kind[hr] = 0;
+        } else if (cls != 5) {
+          const int Yc = min(max(Y, 0), f.H - 1), Xc = min(max(X, 0), f.W - 1);
+          if (Yc >= r0 && Yc < r0 + FTR && Xc >= c0 && Xc < c0 + FTW) {
+            kind[hr] = 1;
+            const size_t o = cls <= 2 ? ((size_t)b * (f.W + 2) + X + 1) * cp
+                                      : ((size_t)b * (f.H + 2) + Y + 1) * cp;
+            eptr[hr] = (cls == 1 ? f.top : cls == 2 ? f.bot : cls == 3 ? f.lc : f.rc) + o;
+            gptr[hr] = (cls == 1 ? a.dtop : cls == 2 ? a.dbot : cls == 3 ? a.dlc : a.drc) + o;
+          }
+        }
+      }
+      const bool ring = border && __any_sync(0xffffffffu, kind[0] == 1 || kind[1] == 1);
+
+      // the recompute in registers: pre0 -> h (x4) -> the phase block, with
+      // the GELU' of each stage kept on the accumulator registers
+      uint32_t pf[NKT][4];
+      float gp0[2 * NKT][4], gpl[2 * NKT][4];  // gelu' of stage 0 (x4), last stage
+#pragma unroll
+      for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gp0[nt][e] = gpl[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NKT; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pf[kk][r] = 0u;
+      if (pass == 0 && !M2T_K2B_OFF(1)) {
+        uint32_t yf[NKT][4];
+#pragma unroll
+        for (int kk = 0; kk < NKT; ++kk)
+          ldmatrix_x4(yf[kk], sm0 + ((rt * 16 + lrow) * YLD + kk * 16 + lcol) * 2);
+        float acc[2 * NKT][4];
+        block_product<NKT>(acc, yf, sm0 + lay.w0 + (lrow * LDB + lcol) * 2, LDB * 2);
+        if (s == 4) {
+          uint32_t hf[NKT][4];
+#pragma unroll
+          for (int nt = 0; nt < 2 * NKT; ++nt) {
+            const float2 bb = *reinterpret_cast<const float2*>(b0f + nt * 8 + 2 * t4);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              float v0, v1;
+              gelu_both(acc[nt][2 * hr] + bb.x, v0, gp0[nt][2 * hr]);
+              gelu_both(acc[nt][2 * hr + 1] + bb.y, v1, gp0[nt][2 * hr + 1]);
+              hf[nt / 2][(nt & 1) * 2 + hr] = pack_bf16(v0, v1);
+            }
+          }
+          store_fragments<NKT>(hf, hs, YLD, rt * 16, g8, t4);
+          block_product<NKT>(acc, hf, sm0 + lay.w1 + (lrow * LDB + lcol) * 2, LDB * 2);
+        }
+        const float* bl = s == 4 ? b1f : b0f;
+#pragma unroll
+        for (int nt = 0; nt < 2 * NKT; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(bl + nt * 8 + 2 * t4);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float v0, v1;
+            gelu_both(acc[nt][2 * hr] + bb.x, v0, gpl[nt][2 * hr]);
+            gelu_both(acc[nt][2 * hr + 1] + bb.y, v1, gpl[nt][2 * hr + 1]);
+            pf[nt / 2][(nt & 1) * 2 + hr] = kind[hr] == 0 ? pack_bf16(v0, v1) : 0u;
+          }
+        }
+      }
+      if (ring) {  // ring pixels take the spliced edge values
+#pragma unroll
+        for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            if (kind[hr] == 1) {
+              const float2 ev = *reinterpret_cast<const float2*>(
+                  eptr[hr] + blk * NF + nt * 8 + 2 * t4);
+              pf[nt / 2][(nt & 1) * 2 + hr] = pack_bf16(ev.x, ev.y);
+            }
+      }
+      store_fragments<NKT>(pf, phs, LDB, rt * 16, g8, t4);
+
+      // GT of the 16 pixels, gathered from the gm halo into A fragments
+      uint32_t gt[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            unsigned short v[2] = {0, 0};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int sel = gsel[kk][h][e];
+              const int oy = hy[hr] - (((sel >> 8) & 15) - 1);
+              const int ox = hx[hr] - (((sel >> 12) & 15) - 1);
+              if (kind[hr] != 2 && sel >= 0 && oy >= 0 && oy < FTR + 2 && ox >= 0 &&
+                  ox < FHW && !M2T_K2B_OFF(4))
+                v[e] = __bfloat16_as_ushort(gms[(oy * FHW + ox) * GMP + (sel & 255)]);
+            }
+            gt[kk][2 * h + hr] = (uint32_t)v[0] | ((uint32_t)v[1] << 16);
+          }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            *reinterpret_cast<uint32_t*>(gts + (rt * 16 + g8 + 8 * hr) * GTLD + kk * 16 +
+                                         h * 8 + 2 * t4) = gt[kk][2 * h + hr];
+
+      // d(ph) = GT w3^T, in og's accumulator layout
+      float dacc[2 * NKT][4];
+#pragma unroll
+      for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dacc[nt][e] = 0.f;
+      if (!M2T_K2B_OFF(4)) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int n2 = 0; n2 < NKT; ++n2) {
+            uint32_t fb[4];
+            ldmatrix_x4(fb, sm0 + lay.w3 + ((n2 * 16 + krow) * W3LD + kk * 16 + kcol) * 2);
+            mma_bf16(dacc[2 * n2], gt[kk], fb[0], fb[1]);
+            mma_bf16(dacc[2 * n2 + 1], gt[kk], fb[2], fb[3]);
+          }
+      }
+      if (ring) {  // a ring pixel's d(ph) is its edge gradient
+#pragma unroll
+        for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            if (kind[hr] == 1)
+              *reinterpret_cast<float2*>(gptr[hr] + blk * NF + nt * 8 + 2 * t4) =
+                  make_float2(dacc[nt][2 * hr], dacc[nt][2 * hr + 1]);
+      }
+      if (pass == 1) continue;
+
+      // d(last stage's pre-activation) = d(ph) * gelu', bf16 (zero on rows
+      // that are no interior pixel), and down the stages
+      uint32_t dl[NKT][4];
+#pragma unroll
+      for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          dl[nt / 2][(nt & 1) * 2 + hr] =
+              kind[hr] == 0 ? pack_bf16(dacc[nt][2 * hr] * gpl[nt][2 * hr],
+                                        dacc[nt][2 * hr + 1] * gpl[nt][2 * hr + 1])
+                            : 0u;
+      if (s == 4) {
+        store_fragments<NKT>(dl, dogs, LDB, rt * 16, g8, t4);
+        if (!M2T_K2B_OFF(8))
+          block_product_nt<NKT>(dacc, dl, sm0 + lay.w1 + (krow * LDB + kcol) * 2, LDB * 2);
+#pragma unroll
+        for (int nt = 0; nt < 2 * NKT; ++nt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            dl[nt / 2][(nt & 1) * 2 + hr] =
+                pack_bf16(dacc[nt][2 * hr] * gp0[nt][2 * hr],
+                          dacc[nt][2 * hr + 1] * gp0[nt][2 * hr + 1]);
+      }
+      store_fragments<NKT>(dl, dpres, LDB, rt * 16, g8, t4);
+      // the role's share of dy = d(pre0) w0^T, to its plane
+      if (!M2T_K2B_OFF(16)) {
+        block_product_nt<NKT>(dacc, dl, sm0 + lay.w0 + (krow * LDB + kcol) * 2, LDB * 2);
+        float* plane = a.dy_part + (size_t)blk * f.B * f.H * f.W * NF;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          if (kind[hr] == 0) {
+            float* dst = plane + (((size_t)b * f.H + Yf[hr]) * f.W + Xf[hr]) * NF;
+#pragma unroll
+            for (int nt = 0; nt < 2 * NKT; ++nt)
+              *reinterpret_cast<float2*>(dst + nt * 8 + 2 * t4) =
+                  make_float2(dacc[nt][2 * hr], dacc[nt][2 * hr + 1]);
+          }
+      }
+    }
+    __syncthreads();  // h, d(og), d(pre0), ph and GT of the tile are complete
+
+    // the weight gradients' 16x16 units, accumulated over the block's tiles:
+    // [0, NA) the last stage's dw | db = (x4: h, else y)^T d(last pre),
+    // [NA, NA + nB) x4's dw0 | db0 share = y^T d(pre0), then dw3 = ph^T GT
+    const int k3 = border ? FNP / 16 : NOUT / 16;
+#pragma unroll
+    for (int i = 0; i < MAXU; ++i) {
+      const int u = warp + BW * i;
+      if (u >= nunits) continue;
+      if (u < NA + nB) {
+        if (M2T_K2B_OFF(16)) continue;
+        const bool second = u >= NA;
+        const int v = second ? u - NA : u, mt = v / NKT, ct = v % NKT;
+        const uint32_t hin = sm0 + (s == 4 && !second ? lay.h : 0);
+        const uint32_t din = sm0 + (s == 4 && !second ? lay.dog : lay.dpre);
+#pragma unroll
+        for (int kk = 0; kk < NOUT / 16; ++kk) {
+          uint32_t fa[4], fb[4];
+          ldmatrix_x4_trans(fa, hin + ((kk * 16 + krow) * YLD + mt * 16 + kcol) * 2);
+          ldmatrix_x4_trans(fb, din + ((kk * 16 + lrow) * LDB + ct * 16 + lcol) * 2);
+          mma_bf16(wacc[i][0], fa, fb[0], fb[1]);
+          mma_bf16(wacc[i][1], fa, fb[2], fb[3]);
+        }
       } else {
-        const int n = e - nf * nc0;
-        for (int p = 0; p < NT; ++p) sum += dstage0(p, n);
-        p0[nf * cp0 + col0 + n] = sum;
+        if (M2T_K2B_OFF(2)) continue;
+        const int v = u - NA - nB, mt = v / 2, ct = v % 2;
+        for (int kk = 0; kk < k3; ++kk) {
+          uint32_t fa[4], fb[4];
+          ldmatrix_x4_trans(fa, sm0 + lay.ph + ((kk * 16 + krow) * LDB + mt * 16 + kcol) * 2);
+          ldmatrix_x4_trans(fb, sm0 + lay.gt + ((kk * 16 + lrow) * GTLD + ct * 16 + lcol) * 2);
+          mma_bf16(wacc[i][0], fa, fb[0], fb[1]);
+          mma_bf16(wacc[i][1], fa, fb[2], fb[3]);
+        }
       }
     }
-#pragma unroll
-    for (int m = 0; m < MAX_DY; ++m) {
-      const int item = tid + THREADS * m;
-      if (item >= NT * nf) break;
-      const int p = item / nf, j = item % nf;
-      float sum = 0.f;
-      for (int n = 0; n < nc0; ++n)
-        sum += dstage0(p, n) * ldf(w0s + j * ld0s + n);
-      dyacc[m] += sum;
-    }
-    __syncthreads();
   }
 
+  // one partial a block. partA: batch = x4 ? jb : blk, row = x4 ? grp*npr +
+  // idx : idx; partB (x4): batch grp, row jb*npr + idx; part3: row blockIdx.x
+  constexpr int WSZ = (NF + 1) * NF;
+  float* pa = a.partA + ((size_t)(s == 4 ? jb * 4 * npr + grp * npr : blk * npr) + idx) * WSZ;
+  float* pb = a.partB + ((size_t)(grp * 4 * npr + jb * npr) + idx) * WSZ;
+  float* p3 = a.part3 + (size_t)blockIdx.x * 27 * NF;
 #pragma unroll
-  for (int m = 0; m < MAX_DY; ++m) {
-    const int item = tid + THREADS * m;
-    if (item >= NT * nf) break;
-    const int p = item / nf, j = item % nf;
-    const int Y = r0 + p / TW, X = c0 + p % TW;
-    if (Y < f.H && X < f.W)
-      a.dy[(((size_t)b * f.H + Y) * f.W + X) * nf + j] = dyacc[m];
-  }
+  for (int i = 0; i < MAXU; ++i) {
+    const int u = warp + BW * i;
+    if (u >= nunits) continue;
 #pragma unroll
-  for (int m = 0; m < MAX_W3; ++m) {
-    const int item = tid + THREADS * m;
-    if (item >= 9 * nf / 2) break;
-    const int tap = item / (nf / 2), ch = (item % (nf / 2)) * 2;
-    float* out = a.part3 + tile * 27 * nf + (tap * nf + ch) * 3;
-    for (int u = 0; u < 6; ++u) out[u] = w3acc[m][u];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float val = wacc[i][nt][2 * hr + e];
+          if (u < NA + nB) {
+            const int v = u >= NA ? u - NA : u;
+            const int m = (v / NKT) * 16 + g8 + 8 * hr;
+            const int n = (v % NKT) * 16 + nt * 8 + 2 * t4 + e;
+            if (m <= NF) (u >= NA ? pb : pa)[m * NF + n] = val;
+          } else {
+            const int v = u - NA - nB;
+            const int ch = (v / 2) * 16 + g8 + 8 * hr;
+            const int col = (v % 2) * 16 + nt * 8 + 2 * t4 + e;
+            if (col < 27) p3[((col / 3) * NF + ch) * 3 + col % 3] = val;
+          }
+        }
   }
+}
+
+template <int NF>
+cudaError_t launch(const BwdArgs& a, int grid, cudaStream_t st) {
+  const int smem = bwd_layout(NF).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      tail_band_bwd_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  tail_band_bwd_kernel<NF><<<grid, BT, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -409,17 +596,32 @@ tail_band_bwd_kernel(BwdArgs a) {
 // Shared memory of pass 0 (which = 0: K2's kernel, at x4, its largest) and
 // pass 1 (which = 1) at n_feats nf.
 extern "C" int m2t_tail_band_bwd_smem(int nf, int which) {
-  return which == 0 ? m2t_tail_band_smem(nf, 4) : (int)bwd_layout(nf).total;
+  return which == 0 ? m2t_tail_band_smem(nf, 4) : bwd_layout(nf).total;
 }
 
+// Thread blocks a role of pass 1 gets on this card at this scale (the grid is
+// scale^2 roles times this many), or minus a CUDA error.
+extern "C" int m2t_tail_band_bwd_blocks(int scale) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int npr = sms / (scale * scale);
+  return npr < 1 ? 1 : npr;
+}
+
+// partA: (x4 ? 4 : P batches, x4 ? 4*npr : npr rows, (nf+1)*nf); partB: (4,
+// 4*npr, (nf+1)*nf), x4 only; part3: (P*npr, 27*nf); dy_part: (P, B, H, W,
+// nf); outA, outB: the batches reduced; npr = m2t_tail_band_bwd_blocks(scale).
 extern "C" int m2t_tail_band_bwd(
     const void* y, const void* w0, const void* b0, const void* w1,
     const void* b1, const void* w3, const void* lc, const void* rc,
-    const void* top, const void* bot, const void* g, void* gm, void* part0,
-    void* part1, void* part3, void* dy, void* dw0b0, void* dw1b1, void* dw3,
-    void* dlc, void* drc, void* dtop, void* dbot, int B, int H, int W,
+    const void* top, const void* bot, const void* g, void* gm, void* partA,
+    void* partB, void* part3, void* dy_part, void* dy, void* outA, void* outB,
+    void* dw3, void* dlc, void* drc, void* dtop, void* dbot, int B, int H, int W,
     int nf, int scale, float rgb_range, void* stream) {
-  if (scale < 2 || scale > 4 || nf % 16 != 0 || nf > 64)
+  if (scale < 2 || scale > 4 || nf % 16 != 0 || nf < 16 || nf > 64)
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.f.y = static_cast<const bf16*>(y);
@@ -435,37 +637,41 @@ extern "C" int m2t_tail_band_bwd(
   a.f.out = nullptr;
   a.f.B = B; a.f.H = H; a.f.W = W; a.f.nf = nf; a.f.scale = scale;
   a.f.rgb_range = rgb_range;
-  a.g = static_cast<const bf16*>(g);
-  a.gm = static_cast<float*>(gm);
-  a.part0 = static_cast<float*>(part0);
-  a.part1 = static_cast<float*>(part1);
+  a.gm = static_cast<const float*>(gm);
+  a.partA = static_cast<float*>(partA);
+  a.partB = static_cast<float*>(partB);
   a.part3 = static_cast<float*>(part3);
-  a.dy = static_cast<float*>(dy);
+  a.dy_part = static_cast<float*>(dy_part);
   a.dlc = static_cast<float*>(dlc);
   a.drc = static_cast<float*>(drc);
   a.dtop = static_cast<float*>(dtop);
   a.dbot = static_cast<float*>(dbot);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t s1 = bwd_layout(nf).total;
-  int code = m2t_tail_band_gm(y, w0, b0, w1, b1, w3, lc, rc, top, bot, nullptr,
-                              g, gm, B, H, W, nf, scale, rgb_range, stream);
+  int code = M2T_K2B_OFF(64) ? 0
+      : m2t_tail_band_gm(y, w0, b0, w1, b1, w3, lc, rc, top, bot, nullptr, g,
+                         gm, B, H, W, nf, scale, rgb_range, stream);
   if (code) return code;
-  cudaError_t err = cudaFuncSetAttribute(
-      tail_band_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s1);
+  const int P = scale * scale, npr = m2t_tail_band_bwd_blocks(scale);
+  if (npr < 0) return -npr;
+  const int grid = P * npr;
+  cudaError_t err;
+  switch (nf / 16) {
+    case 1: err = launch<16>(a, grid, st); break;
+    case 2: err = launch<32>(a, grid, st); break;
+    case 3: err = launch<48>(a, grid, st); break;
+    default: err = launch<64>(a, grid, st); break;
+  }
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((H + TR - 1) / TR) * ((W + TW - 1) / TW);
-  dim3 grid(tiles, B);
-  tail_band_bwd_kernel<<<grid, THREADS, s1, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int cp0 = scale == 4 ? 4 * nf : scale * scale * nf;
-  code = m2t_reduce_rows(part0, tiles * B, (long long)nf * cp0 + cp0,
-                             dw0b0, stream);
+  if (M2T_K2B_OFF(32)) return 0;
+  const long long wsz = (long long)(nf + 1) * nf;
+  code = m2t_reduce_batched(partA, scale == 4 ? 4 : P, scale == 4 ? 4 * npr : npr,
+                            wsz, outA, stream);
   if (code) return code;
   if (scale == 4) {
-    code = m2t_reduce_rows(part1, tiles * B * 4, (long long)nf * 4 * nf + 4 * nf,
-                           dw1b1, stream);
+    code = m2t_reduce_batched(partB, 4, 4 * npr, wsz, outB, stream);
     if (code) return code;
   }
-  return m2t_reduce_rows(part3, tiles * B, 27LL * nf, dw3, stream);
+  code = m2t_reduce_batched(part3, 1, grid, 27LL * nf, dw3, stream);
+  if (code) return code;
+  return m2t_reduce_batched(dy_part, 1, P, (long long)B * H * W * nf, dy, stream);
 }

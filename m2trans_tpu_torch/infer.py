@@ -7,7 +7,7 @@ latency, the device, and the launches of the port's kernels.
 Usage:
   python -m m2trans_tpu_torch.infer --config configs/M2Trans_x4_test.yml \
       --model_path model_x4.pt --input frames_dir/ --output sr_out/ \
-      [--f32] [--u8] [--device cuda|cpu]
+      [--f32] [--u8] [--depth N] [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is
 present; the CPU runs only when asked for (``--device cpu``), with the
@@ -30,8 +30,12 @@ def main(argv=None) -> None:
                     help="image file or directory of frames")
     ap.add_argument("--output", type=str, default=None)
     ap.add_argument("--mesh-space", type=int, default=0,
-                    help="spatial shards over the frame height; only 0 "
-                         "(auto) and 1 (one device) are ported yet")
+                    help="spatial shards over the frame height; 0 (auto) "
+                         "and 1 both mean one device today, other values "
+                         "raise (spatial sharding is not ported yet)")
+    ap.add_argument("--depth", type=int, default=2,
+                    help="frames in flight in the stream (1: each frame is "
+                         "waited for before the next is enqueued)")
     ap.add_argument("--f32", action="store_true",
                     help="f32 parity numerics instead of bf16 + kernels")
     ap.add_argument("--u8", action="store_true",
@@ -77,7 +81,8 @@ def main(argv=None) -> None:
     if not frames:
         raise SystemExit("no input frames found")
 
-    runner = StreamingSR(model, cfg, policy=policy, output_u8=args.u8)
+    runner = StreamingSR(model, cfg, policy=policy, output_u8=args.u8,
+                         depth=args.depth)
     runner.warmup(frames[0].shape)
     if args.output:
         os.makedirs(args.output, exist_ok=True)
@@ -97,6 +102,7 @@ def main(argv=None) -> None:
 
     report = {
         "frames": len(frames),
+        "depth": runner.depth,
         "fps": round(len(frames) / wall, 2),
         "output_megapixels_per_sec": round(n_px / 1e6 / wall, 2),
         **{k.replace("_s", "_ms"): round(v * 1e3, 2)

@@ -354,11 +354,25 @@ def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
     return ff(torch.cat(outs, dim=-1), x, *_ff_wb(blk, policy.dtype))
 
 
+_PS_PERM = {}  # (channels, r, device) -> the permutation on that device
+
+
+def _ps_perm(channels: int, r: int, device) -> torch.Tensor:
+    """``ps_weight_perm(channels, r)`` on ``device``, built and copied once:
+    the f32 forward makes no host-to-device copy after its first call."""
+    key = (channels, r, str(device))
+    if key not in _PS_PERM:
+        # a plain tensor even when first built while serving: an inference
+        # tensor could not index a weight that autograd tracks later
+        with torch.inference_mode(False):
+            _PS_PERM[key] = torch.as_tensor(ps_weight_perm(channels, r), device=device)
+    return _PS_PERM[key]
+
+
 def _conv_ps_gelu(x, w, b, r):
     """1x1 conv -> PixelShuffle(r) -> GELU as conv with output channels in
     depth-to-space order -> GELU -> fast shuffle (bit-identical order)."""
-    perm = torch.as_tensor(ps_weight_perm(w.shape[0] // (r * r), r),
-                           device=w.device)
+    perm = _ps_perm(w.shape[0] // (r * r), r, w.device)
     y = conv2d(x, w[perm], b[perm], padding="valid")
     return pixel_shuffle_fast(gelu_exact(y), r)
 

@@ -56,13 +56,14 @@ SIGNATURES = {
                           I, I, I, I, I,           # B H W Cb levels
                           LL, LL, LL, P],          # x strides b, h, w; stream
     "m2t_cftm_branch_bwd": [P, P, P, P, P, P, P, P,  # x xadd s t w relh relw gout
-                            P, P, P, P, P, P, P,     # dO dp dq dk dv drel_part dw_part
-                            P, P, P,                 # dz dw drel
+                            P, P, P, P, P, P,        # dq dk dv drel_part dw_part st_part
+                            P, P, P, P, P,           # dx dxadd dw drel st
                             I, I, I, I, I,           # B H W Cb levels
                             LL, LL, LL, LL, LL, LL,  # x / xadd strides b, h, w
                             F, P],                   # r, stream
-    "m2t_cftm_branch_bwd_smem": [I, I],
-    "m2t_reduce_rows": [P, I, LL, P, P],             # part n len out stream
+    "m2t_cftm_branch_bwd_smem": [I, I, I],           # Cb levels which
+    "m2t_cftm_branch_bwd_variant": [I, I],           # Cb levels
+    "m2t_reduce_batched": [P, I, I, LL, P, P],       # part nbatch n len out stream
     "m2t_tail_band": [P, P, P, P, P, P,            # y w0 b0 w1 b1 w3
                       P, P, P, P, P,               # lc rc top bot out
                       I, I, I, I, I, F, P],        # B H W nf scale rgb stream
@@ -70,9 +71,10 @@ SIGNATURES = {
     "m2t_tail_band_tile": [I],                     # 0 rows, 1 columns
     "m2t_tail_band_bwd": [P, P, P, P, P, P,        # y w0 b0 w1 b1 w3
                           P, P, P, P, P,           # lc rc top bot g
-                          P, P, P, P,              # gm part0 part1 part3
-                          P, P, P, P, P, P, P, P,  # dy dw0b0 dw1b1 dw3 dlc drc dtop dbot
+                          P, P, P, P, P,           # gm partA partB part3 dy_part
+                          P, P, P, P, P, P, P, P,  # dy outA outB dw3 dlc drc dtop dbot
                           I, I, I, I, I, F, P],    # B H W nf scale rgb stream
+    "m2t_tail_band_bwd_blocks": [I],               # scale
     "m2t_tail_band_bwd_smem": [I, I],
     "m2t_ff_conv": [P, P, P, P, P,                 # oc x w b out
                     I, I, I, I, P],                # B H W C stream

@@ -335,6 +335,250 @@ def window_branch(x: torch.Tensor, w_qkv: torch.Tensor, rel_h: torch.Tensor,
     return (o + z.float()).to(dt) if s is not None else o.to(dt)
 
 
+# K1b at base width 16 (csrc/cftm_branch_bwd.cu) keeps a warp's 16 x 112
+# logits, probabilities, dP and dS in the accumulator registers; a window's
+# dq, dk, dv cross global memory once; an 8x8 block gathers them through a
+# neighbour table; every partial sum goes through one tree reduction. The
+# functions below state that arithmetic on tensors.
+
+RED_LANES = 8  # row lanes of the reduction's tree (reduce_tree_kernel)
+
+
+def tree_reduce_rows(part: torch.Tensor) -> torch.Tensor:
+    """Sum of the rows of ``part`` (n, ...) in the order of K1b's and K2b's
+    reduction: lane l sums the rows i = l (mod 8) in ascending order, then
+    ``((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7))``, all in f32. The
+    order depends on the indices alone, so two runs give the same bits."""
+    part = part.float()
+    lanes = []
+    for lane in range(RED_LANES):
+        acc = torch.zeros_like(part[0])
+        for i in range(lane, part.shape[0], RED_LANES):
+            acc = acc + part[i]
+        lanes.append(acc)
+    return ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) + \
+        ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
+
+
+def slot_of_window_position() -> torch.Tensor:
+    """(10, 10) int64: the slot of every (row, col) of the key window, the
+    inverse of :func:`window_slots` (the kernels' ``win_slot``)."""
+    out = torch.empty(10, 10, dtype=torch.int64)
+    slots = window_slots()
+    out[slots[:, 0], slots[:, 1]] = torch.arange(NK)
+    return out
+
+
+def key_neighbours(nbh: int, nbw: int):
+    """For every 8x8 block (bi, bj) of an (nbh, nbw) grid and every pixel p
+    of it, the (window row, window column, slot) triples of the windows that
+    hold the pixel as a key, in the order K1b's second kernel sums them
+    (dy = -1..1, dx = -1..1; the block's own window among them, at most 4).
+    Worked out once a pixel. Returns a dict keyed (bi, bj) of 64 lists."""
+    slot_of = slot_of_window_position()
+    table = {}
+    for bi in range(nbh):
+        for bj in range(nbw):
+            rows = []
+            for p in range(NQ):
+                li, lj = divmod(p, 8)
+                found = []
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        wr, wc = 1 + li - 8 * dy, 1 + lj - 8 * dx
+                        if (0 <= bi + dy < nbh and 0 <= bj + dx < nbw
+                                and 0 <= wr <= 9 and 0 <= wc <= 9):
+                            found.append((bi + dy, bj + dx, int(slot_of[wr, wc])))
+                rows.append(found)
+            table[(bi, bj)] = rows
+    return table
+
+
+def _rows_from_fragments(regs: torch.Tensor) -> torch.Tensor:
+    """(32 lanes, 14 tiles, 4 registers) accumulator values of a warp's 16 x
+    112 tile -> the (16, 112) matrix, read as the A fragments of the next
+    product take them (tiles 2*kk and 2*kk + 1 are the k16 step kk)."""
+    al = mma_a_layout()
+    out = torch.zeros(16, NKP, dtype=regs.dtype)
+    for kk in range(NKP // 16):
+        for h in range(2):
+            for hr in range(2):
+                for half in range(2):
+                    rows, ks = al[:, 2 * h + hr, half, 0], al[:, 2 * h + hr, half, 1]
+                    out[rows, 16 * kk + ks] = regs[:, 2 * kk + h, 2 * hr + half]
+    return out
+
+
+def register_softmax_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         d_o: torch.Tensor, dtype=torch.bfloat16):
+    """One window's P and dS as K1b's window body forms them. q, d_o: (64, C)
+    (q scaled), k, v: (112, C) in slot order. A warp owns 16 query rows; its
+    logits, its ``dP = dO v^T`` and with them ``dS = P * (dP - rowsum(dP *
+    P))`` lie in the 14 accumulator tiles of :func:`mma_accumulator_layout`;
+    pad slots are masked to -inf before the softmax, so P and dS are zero
+    there; the row max, the row sum and ``rowsum(dP * P)`` are reduced over
+    the four lanes of a quad. Returns ``dtype(P)``, ``dtype(dS)``, (64, 112)
+    each, as they cross shared memory for ``P^T dO`` and ``dS^T q``."""
+    cl = mma_accumulator_layout()
+    key = torch.arange(NKP // 8)[None, :, None] * 8 + cl[:, None, :, 1]
+    row = cl[:, None, :, 0].expand(32, NKP // 8, 4)
+    quad = torch.arange(32) // 4
+
+    def quad_rows(vals, op):  # (32, 14, 4) -> (8 quads, 2 rows)
+        out = torch.empty(8, 2)
+        for hr in range(2):
+            own = op(vals[:, :, 2 * hr:2 * hr + 2].reshape(32, -1))
+            out[:, hr] = op(own.reshape(8, 4))
+        return out
+
+    def spread(per_row):  # (8, 2) -> (32, 1, 4)
+        return per_row[quad][:, None, :].repeat_interleave(2, dim=-1)
+
+    ps, dss = [], []
+    for w in range(NQ // 16):
+        rows16 = slice(16 * w, 16 * w + 16)
+        logits = q[rows16].float() @ k.float().T
+        dpm = d_o[rows16].float() @ v.float().T
+        s = logits[row, key]
+        s = torch.where(key >= NK, torch.full_like(s, float("-inf")), s)
+        dp = dpm[row, key]
+        m = quad_rows(s, lambda a: a.max(dim=1).values)
+        p = torch.exp(s - spread(m))
+        p = p / spread(quad_rows(p, lambda a: a.sum(dim=1)))
+        rs = quad_rows(p * dp, lambda a: a.sum(dim=1))
+        ds = p * (dp - spread(rs))
+        ps.append(_rows_from_fragments(p.to(dtype)))
+        dss.append(_rows_from_fragments(ds.to(dtype)))
+    return torch.cat(ps), torch.cat(dss)
+
+
+def cluster_attention_vjp(q, k, v, d_o, dtype=torch.bfloat16,
+                          split: int = CLUSTER_SPLIT):
+    """One window's attention VJP as K1b's C = 256 body splits it over the
+    cluster: CTA r owns the channels :func:`cluster_columns` gives it. The
+    logits and ``dP = dO v^T`` are sums of the CTAs' partials over their
+    channels, taken in rank order; the CTA that owns 16 query rows forms
+    their softmax and ``dS = P * (dP - rowsum(dP * P))`` over the 100 real
+    keys in f32 and hands bf16 P and dS to all; ``dq = dS k``, ``dv = P^T dO``
+    and ``dk = dS^T q`` are then local to a CTA's columns. Returns the f32
+    ``(dq, dk, dv)`` (dq without the C^-0.5 the kernel applies at its
+    store)."""
+    cols = cluster_columns(q.shape[1], split)
+    logits = torch.zeros(NQ, NKP)
+    dp = torch.zeros(NQ, NKP)
+    for r in range(split):
+        logits = logits + q[:, cols[r]].float() @ k[:, cols[r]].float().T
+        dp = dp + d_o[:, cols[r]].float() @ v[:, cols[r]].float().T
+    p = torch.zeros(NQ, NKP)
+    p[:, :NK] = torch.softmax(logits[:, :NK], dim=-1)
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(dtype).float()
+    pb = p.to(dtype).float()
+    dq, dk, dv = torch.zeros(NQ, q.shape[1]), torch.zeros_like(k.float()), \
+        torch.zeros_like(v.float())
+    for r in range(split):
+        dq[:, cols[r]] = ds @ k[:, cols[r]].float()
+        dk[:, cols[r]] = ds.T @ q[:, cols[r]].float()
+        dv[:, cols[r]] = pb.T @ d_o[:, cols[r]].float()
+    return dq, dk, dv
+
+
+def window_branch_vjp(x, w_qkv, rel_h, rel_w, s, t, gout, *, x_add=None,
+                      r: float = 0.5, levels: int = 0):
+    """K1b as its kernels of base width 16 cut it, on tensors, rounding
+    where they round. (a) Per 8x8 coarse query block the forward recompute
+    of :func:`window_branch` up to P, ``dO = DWT^L(gout)``, then
+    :func:`register_softmax_vjp` (at C = 256 :func:`cluster_attention_vjp`),
+    ``dq = dS k * C^-0.5``, ``dk = dS^T q``, ``dv = P^T dO`` in f32 per window,
+    and the window's rel-pos partials (ten slots a row / column in order).
+    (b) Per block the gather through :func:`key_neighbours`, ``dqkv`` rounded,
+    the block's ``dW`` partial ``zc^T dqkv`` and ``dzc = dqkv W^T`` (at C = 256
+    by the base-channel quarters of :func:`cluster_output_columns`), the
+    inverse transform, the residual and the affine's gradients with the
+    block's shares of ds and dt. (c) :func:`tree_reduce_rows` over the
+    partials. Returns what :func:`cftm_branch_plain_vjp` returns."""
+    dt_ = x.dtype
+    z = x.float() * s.float()[:, None, None, :] + t.float()[:, None, None, :]
+    if x_add is not None:
+        z = z + r * x_add.float()
+    zc, d_o = z.to(dt_).float(), gout.to(dt_).float()
+    for _ in range(levels):
+        zc, d_o = haar_dwt(zc), haar_dwt(d_o)
+    zc, d_o = zc.to(dt_), d_o.to(dt_)
+    bsz, hc, wc, c = zc.shape
+    nbh, nbw, c2 = hc // 8, wc // 8, c // 2
+    nblk = nbh * nbw
+    zp = torch.nn.functional.pad(zc, (0, 0, 1, 1, 1, 1))
+    slots, slot_of = window_slots(), slot_of_window_position()
+    rel = torch.cat([rel_h.float()[slots[:, 0]], rel_w.float()[slots[:, 1]]], dim=-1)
+    wf = w_qkv.float()
+    scale = c ** -0.5
+    cluster = c == 256 and x.shape[-1] == 16
+    dq = torch.zeros(bsz, nblk, NQ, c)
+    dk, dv = torch.zeros(bsz, nblk, NKP, c), torch.zeros(bsz, nblk, NKP, c)
+    drel_part = torch.zeros(bsz, nblk, 2, 10, c2)
+    for b in range(bsz):
+        for bi in range(nbh):
+            for bj in range(nbw):
+                win = bi * nbw + bj
+                rows = torch.zeros(NKP, c, dtype=dt_)
+                rows[:NK] = zp[b, 8 * bi + slots[:, 0], 8 * bj + slots[:, 1]]
+                qkv = rows.float() @ wf
+                q = (qkv[:NQ, :c] * scale).to(dt_)
+                k = qkv[:, c:2 * c]
+                k[:NK] = k[:NK] + rel
+                k, v = k.to(dt_), qkv[:, 2 * c:].to(dt_)
+                do_w = d_o[b, 8 * bi:8 * bi + 8, 8 * bj:8 * bj + 8].reshape(NQ, c)
+                if cluster:
+                    dqw, dkw, dvw = cluster_attention_vjp(q, k, v, do_w, dt_)
+                else:
+                    p, ds = register_softmax_vjp(q, k, v, do_w, dt_)
+                    dqw = ds.float() @ k.float()
+                    dkw = ds.float().T @ q.float()
+                    dvw = p.float().T @ do_w.float()
+                dq[b, win], dk[b, win], dv[b, win] = dqw * scale, dkw, dvw
+                for u in range(10):  # ten slots a window row / column, in order
+                    drel_part[b, win, 0] += dkw[slot_of[:, u], :c2]
+                    drel_part[b, win, 1] += dkw[slot_of[u, :], c2:]
+    nbrs = key_neighbours(nbh, nbw)
+    quarters = (cluster_output_columns(16, levels) if cluster
+                else torch.arange(c)[None])
+    dzc = torch.zeros(bsz, hc, wc, c)
+    dw_part = torch.zeros(bsz, nblk, c, 3 * c)
+    for b in range(bsz):
+        for (bi, bj), pixels in nbrs.items():
+            win = bi * nbw + bj
+            dqkv = torch.zeros(NQ, 3 * c)
+            dqkv[:, :c] = dq[b, win]
+            for p, found in enumerate(pixels):
+                for wi, wj, slot in found:
+                    dqkv[p, c:2 * c] += dk[b, wi * nbw + wj, slot]
+                    dqkv[p, 2 * c:] += dv[b, wi * nbw + wj, slot]
+            dqkv = dqkv.to(dt_).float()
+            zb = zc[b, 8 * bi:8 * bi + 8, 8 * bj:8 * bj + 8].reshape(NQ, c).float()
+            dzb = torch.zeros(NQ, c)
+            for cols in quarters:  # a thread block each at C = 256
+                dw_part[b, win, cols] = zb[:, cols].T @ dqkv
+                dzb[:, cols] = dqkv @ wf[cols].T
+            dzc[b, 8 * bi:8 * bi + 8, 8 * bj:8 * bj + 8] = dzb.reshape(8, 8, c)
+    dz = dzc
+    for _ in range(levels):
+        dz = haar_iwt(dz)
+    dz = dz + gout.to(dt_).float()
+    dx = (dz * s.float()[:, None, None, :]).to(dt_)
+    dx_add = None if x_add is None else (r * dz).to(x_add.dtype)
+    f = 8 * 2 ** levels  # a block's side in full-resolution pixels
+
+    def block_shares(v):  # (B, H, W, Cb) -> (B, blocks, Cb)
+        cb = v.shape[-1]
+        return v.reshape(bsz, nbh, f, nbw, f, cb).sum(dim=(2, 4)).reshape(bsz, nblk, cb)
+
+    ds_ = torch.stack([tree_reduce_rows(m) for m in block_shares(dz * x.float())])
+    dt_sum = torch.stack([tree_reduce_rows(m) for m in block_shares(dz)])
+    dw = tree_reduce_rows(dw_part.reshape(bsz * nblk, c, 3 * c)).to(w_qkv.dtype)
+    drel = tree_reduce_rows(drel_part.reshape(bsz * nblk, 2, 10, c2))
+    return dx, dx_add, ds_, dt_sum, dw, drel[0], drel[1]
+
+
 def _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, block, halo):
     """Raise unless the operands are what K1, K1b and K1n (``s`` and ``t``
     None) take."""
@@ -422,57 +666,88 @@ def cftm_branch_plain_vjp(x, w_qkv, rel_h, rel_w, s, t, gout, *,
     return dx, (grads[6] if add is not None else None), ds, dt, dw, drh, drw
 
 
-def cftm_branch_bwd(x, w_qkv, rel_h, rel_w, s, t, gout, *, x_add=None,
-                    r: float = 0.5, levels: int = 0):
-    """Launch K1b on CUDA tensors (the operands :func:`_launch` takes, plus
-    the output's cotangent ``gout``); returns ``(dx, dx_add, ds, dt, dw_qkv,
-    drel_h, drel_w)`` in the inputs' dtypes. The kernels give dz and the
-    weight gradients; dx, dx_add, ds, dt are the elementwise and reduction
-    glue that stayed XLA around the TPU kernel."""
-    _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, 8, 1)
-    if gout.shape != x.shape or gout.device != x.device:
-        raise ValueError(f"cftm_branch_bwd: gout {tuple(gout.shape)} on "
-                         f"{gout.device} != x {tuple(x.shape)} on {x.device}")
+_BWD_VARIANTS = ("general", "c256_cluster4", "w16_group", "w64_group")
+_bwd_scratch = {}  # (device, nwin, c, cb) -> K1b's scratch tensors
+
+
+def cftm_branch_bwd_variant(cb: int, levels: int) -> str:
+    """Name of the body of ``csrc/cftm_branch_bwd.cu`` that K1b launches for
+    base width ``cb`` at ``levels``, as the built library decides it."""
+    return _BWD_VARIANTS[build.lib().m2t_cftm_branch_bwd_variant(cb, levels)]
+
+
+def _scratch(dev, bsz: int, nblk: int, c: int, cb: int):
+    """What passes between K1b's kernels: dq, dk, dv a window and the
+    partials of dW, drel and ds | dt. Kept per (device, shape): the launches
+    of a device go to one stream, so the next use is ordered after the last."""
+    key = (str(dev), bsz, nblk, c, cb)
+    if key not in _bwd_scratch:
+        nwin = bsz * nblk
+
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        _bwd_scratch[key] = (f32(nwin, NQ, c), f32(nwin, NKP, c), f32(nwin, NKP, c),
+                             f32(nwin, 2, 10, c // 2), f32(nwin, c, 3 * c),
+                             f32(bsz, nblk, 2, cb))
+    return _bwd_scratch[key]
+
+
+def _bwd_launch(lib, x, w_qkv, rel_h, rel_w, s, t, gout, x_add, r, levels):
+    """Allocate K1b's outputs, take its scratch and call
+    ``m2t_cftm_branch_bwd`` of ``lib`` (the built library, or a timing
+    variant of it): three launches. Returns ``(dx, dx_add, st, dw, drel)``:
+    dx, dx_add and dw in bf16, ``st`` (B, 2, Cb) f32 holding ds and dt, ``drel``
+    (2, 10, C/2) f32 holding drel_h and drel_w."""
     bsz, h, w, cb = x.shape
     c = cb * 4 ** levels
     sfull = 2 ** levels
-    lib = build.lib()
-    for which in (0, 1):
-        if lib.m2t_cftm_branch_bwd_smem(c, which) > build.MAX_SMEM:
-            raise ValueError(f"cftm_branch_bwd kernel: C={c} needs more shared "
-                             "memory than a block has")
-    gout = gout.to(torch.bfloat16).contiguous()
-    nwin = bsz * (h // (8 * sfull)) * (w // (8 * sfull))
+    nblk = (h // (8 * sfull)) * (w // (8 * sfull))
     dev = x.device
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    d_o = torch.empty((nwin, 64, c), dtype=torch.bfloat16, device=dev)
-    dp, dq = f32(nwin, 64, 112), f32(nwin, 64, c)
-    dk, dv = f32(nwin, 112, c), f32(nwin, 112, c)
-    drel_part, dw_part = f32(nwin, 10, c), f32(nwin, c, 3 * c)
-    dz, dw, drel = f32(bsz, h, w, cb), f32(c, 3 * c), f32(10, c)
+    scratch = _scratch(dev, bsz, nblk, c, cb)
+    dx = torch.empty((bsz, h, w, cb), dtype=torch.bfloat16, device=dev)
+    dx_add = torch.empty_like(dx) if x_add is not None else None
+    st = torch.empty((bsz, 2, cb), dtype=torch.float32, device=dev)
+    dw = torch.empty((c, 3 * c), dtype=torch.bfloat16, device=dev)
+    drel = torch.empty((2, 10, c // 2), dtype=torch.float32, device=dev)
     a = x_add if x_add is not None else x
     code = lib.m2t_cftm_branch_bwd(
         x.data_ptr(), x_add.data_ptr() if x_add is not None else None,
         s.data_ptr(), t.data_ptr(), w_qkv.data_ptr(), rel_h.data_ptr(),
-        rel_w.data_ptr(), gout.data_ptr(), d_o.data_ptr(), dp.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel_part.data_ptr(),
-        dw_part.data_ptr(), dz.data_ptr(), dw.data_ptr(), drel.data_ptr(),
+        rel_w.data_ptr(), gout.data_ptr(), *(v.data_ptr() for v in scratch),
+        dx.data_ptr(), dx_add.data_ptr() if dx_add is not None else None,
+        dw.data_ptr(), drel.data_ptr(), st.data_ptr(),
         bsz, h, w, cb, levels, x.stride(0), x.stride(1), x.stride(2),
         a.stride(0), a.stride(1), a.stride(2), float(r), build.stream_ptr(dev))
     build.check(code, "cftm_branch_bwd")
+    return dx, dx_add, st, dw, drel
+
+
+def cftm_branch_bwd(x, w_qkv, rel_h, rel_w, s, t, gout, *, x_add=None,
+                    r: float = 0.5, levels: int = 0):
+    """Launch K1b on CUDA tensors (the operands :func:`_launch` takes, plus
+    the output's cotangent ``gout``); returns ``(dx, dx_add, ds, dt, dw_qkv,
+    drel_h, drel_w)`` in the inputs' dtypes, all written by the kernels (the
+    affine's gradients are the epilogue of its second kernel, every partial
+    sum goes through its one reduction)."""
+    _check(x, w_qkv, rel_h, rel_w, s, t, x_add, levels, 8, 1)
+    if gout.shape != x.shape or gout.device != x.device:
+        raise ValueError(f"cftm_branch_bwd: gout {tuple(gout.shape)} on "
+                         f"{gout.device} != x {tuple(x.shape)} on {x.device}")
+    cb = x.shape[-1]
+    lib = build.lib()
+    for which in (0, 1):
+        if lib.m2t_cftm_branch_bwd_smem(cb, levels, which) > build.MAX_SMEM:
+            raise ValueError(f"cftm_branch_bwd kernel: C={cb * 4 ** levels} needs "
+                             "more shared memory than a block has")
+    gout = gout.to(torch.bfloat16).contiguous()
+    dx, dx_add, st, dw, drel = _bwd_launch(lib, x, w_qkv, rel_h, rel_w, s, t, gout,
+                                           x_add, r, levels)
     cftm_branch_bwd.launches += 1
-    dx = (dz * s[:, None, None, :]).to(x.dtype)
-    dx_add = None if x_add is None else (r * dz).to(x_add.dtype)
-    ds = (dz * x.float()).sum(dim=(1, 2))
-    dt = dz.sum(dim=(1, 2))
-    return (dx, dx_add, ds, dt, dw.to(w_qkv.dtype), drel[:, :c // 2].contiguous(),
-            drel[:, c // 2:].contiguous())
+    return dx, dx_add, st[:, 0], st[:, 1], dw, drel[0], drel[1]
 
 
-cftm_branch_bwd.launches = 0  # K1b launch groups (2 kernels + 2 reductions)
+cftm_branch_bwd.launches = 0  # K1b launch groups (2 kernels + 1 reduction)
 
 
 class CftmBranchFn(torch.autograd.Function):

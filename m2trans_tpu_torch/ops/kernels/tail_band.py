@@ -189,6 +189,127 @@ def tail_band_contract_gather(y, w0, b0, w1, b1, w3, lc, rc, top, bot, *,
     return out
 
 
+# K2b's second pass (csrc/tail_band_bwd.cu) gives every thread block a role,
+# one phase block, and turns the 3x3 phase conv's adjoint into two dense
+# products through a gathered matrix GT. The functions below state that
+# arithmetic on tensors.
+
+
+def phase_tap_adjoint_table(scale: int):
+    """For every source phase block the nine ``(tap, q, yo, xo)`` that read
+    it: tap ``(dr+1)*3 + dc+1`` of output phase q of the LR pixel at offset
+    ``-(yo, xo)`` from the source. Every tap of a block is read by exactly
+    one output phase of one neighbour: the transpose of
+    :func:`phase_tap_table`."""
+    P = scale * scale
+    table = [[None] * 9 for _ in range(P)]
+    for q, terms in enumerate(phase_tap_table(scale)):
+        for tap, blk, yo, xo in terms:
+            assert table[blk][tap] is None
+            table[blk][tap] = (tap, q, yo, xo)
+    return table
+
+
+def gathered_cotangent(gm: torch.Tensor, scale: int, blk: int) -> torch.Tensor:
+    """``GT`` of phase block ``blk`` for every pixel of the band. ``gm``: the
+    clip-masked cotangent (B, H, W, P*3). Returns (B, H+2, W+2, 27) with
+    ``GT[s, tap*3 + c] = gm[s - (yo, xo), q, c]`` over the band's pixels s
+    (the frame and its 1-px ring), zero where the reading output pixel is
+    off the frame."""
+    bsz, h, w, _ = gm.shape
+    pad = F.pad(gm.float(), (0, 0, 2, 2, 2, 2))  # band pixel s -> pad[s + 1]
+    cols = []
+    for tap, q, yo, xo in phase_tap_adjoint_table(scale)[blk]:
+        cols.append(pad[:, 1 - yo:1 - yo + h + 2, 1 - xo:1 - xo + w + 2,
+                        3 * q:3 * q + 3])
+    return torch.cat(cols, dim=-1)
+
+
+def phase_conv_adjoint_taps(ph: torch.Tensor, gm: torch.Tensor,
+                            w3: torch.Tensor, scale: int):
+    """The adjoint of the 3x3 phase-space conv as K2b computes it: per phase
+    block two dense products through :func:`gathered_cotangent`,
+    ``d(ph)[s, blk, :] = GT[s] w3^T`` and ``dw3 += ph[s, blk, :]^T GT[s]``.
+    ``ph``: the (B, H+2, W+2, P*nf) band with its ring; returns the f32
+    ``(d(ph), dw3)`` of the band's and of w3's shapes."""
+    P, nf = scale * scale, w3.shape[2]
+    w27 = w3.float().permute(0, 1, 3, 2).reshape(27, nf)  # [tap*3 + c, ch]
+    dph = torch.zeros(ph.shape, dtype=torch.float32)
+    dw3 = torch.zeros(27, nf)
+    for blk in range(P):
+        gt = gathered_cotangent(gm, scale, blk)
+        dph[..., blk * nf:(blk + 1) * nf] = gt @ w27
+        dw3 = dw3 + torch.einsum("bhwk,bhwc->kc", gt,
+                                 ph[..., blk * nf:(blk + 1) * nf].float())
+    return dph, dw3.reshape(3, 3, 3, nf).permute(0, 1, 3, 2).contiguous()
+
+
+def _gelu_grad(v: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1 + torch.erf(v * 2 ** -0.5)) + \
+        v * torch.exp(-0.5 * v * v) * (2 * torch.pi) ** -0.5
+
+
+def tail_band_vjp_by_roles(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *,
+                           scale: int, rgb_range: float):
+    """K2b as its kernels cut it, on tensors, rounding where they round. Pass
+    0: K2's pre-clamp outputs (:func:`phase_conv_contract_gather`) give the
+    clip mask. Pass 1, one role a phase block blk (x4: stage-0 group blk // 4,
+    stage-1 block blk % 4): :func:`gathered_cotangent`, ``d(ph) = GT w3^T``
+    (a ring pixel's is its edge gradient), ``dw3 += ph^T GT``, then d(last
+    pre-activation) = bf16(d(ph) gelu'), the stage transposes with
+    ``d(pre0)`` in bf16, the role's share of ``dw | db`` of each stage and
+    its plane of dy. The planes are summed by
+    :func:`~m2trans_tpu_torch.ops.kernels.halo_attn.tree_reduce_rows`.
+    Returns what :func:`tail_band_plain_vjp` returns."""
+    from m2trans_tpu_torch.ops.kernels.halo_attn import tree_reduce_rows
+
+    dt = y.dtype
+    bsz, h, w, nf = y.shape
+    P = scale * scale
+    band = _phase_band(y, w0, b0, w1, b1, lc, rc, top, bot, scale)
+    pre = phase_conv_contract_gather(band, w3, scale)
+    gm = torch.where((pre >= 0) & (pre <= rgb_range), g.to(dt).float(),
+                     torch.zeros(()))
+    yf = y.float()
+    dw0, db0 = torch.zeros(w0.shape), torch.zeros(b0.shape)
+    dw1, db1 = torch.zeros(w1.shape), torch.zeros(b1.shape)
+    dw3 = torch.zeros(27, nf)
+    w27 = w3.float().permute(0, 1, 3, 2).reshape(27, nf)
+    dband = torch.zeros(band.shape, dtype=torch.float32)
+    planes = []
+    for blk in range(P):
+        cols = slice(blk * nf, (blk + 1) * nf)
+        gt = gathered_cotangent(gm, scale, blk)
+        dph = gt @ w27
+        dband[..., cols] = dph
+        dw3 = dw3 + torch.einsum("bhwk,bhwc->kc", gt, band[..., cols].float())
+        dph = dph[:, 1:h + 1, 1:w + 1]  # interior pixels go down the stages
+        if scale == 4:
+            gcols = slice((blk // 4) * nf, (blk // 4 + 1) * nf)
+            jcols = slice((blk % 4) * nf, (blk % 4 + 1) * nf)
+            pre0 = yf @ w0.float()[:, gcols] + b0.float()[gcols]
+            hg = gelu_exact(pre0).to(dt).float()
+            og = hg @ w1.float()[:, jcols] + b1.float()[jcols]
+            dog = (dph * _gelu_grad(og)).to(dt).float()
+            dw1[:, jcols] += torch.einsum("bhwi,bhwo->io", hg, dog)
+            db1[jcols] += dog.sum(dim=(0, 1, 2))
+            dpre = ((dog @ w1.float()[:, jcols].T) * _gelu_grad(pre0)).to(dt).float()
+        else:
+            gcols = cols
+            pre0 = yf @ w0.float()[:, gcols] + b0.float()[gcols]
+            dpre = (dph * _gelu_grad(pre0)).to(dt).float()
+        dw0[:, gcols] += torch.einsum("bhwi,bhwo->io", yf, dpre)
+        db0[gcols] += dpre.sum(dim=(0, 1, 2))
+        planes.append(dpre @ w0.float()[:, gcols].T)
+    dy = tree_reduce_rows(torch.stack(planes))
+    dlc, drc = torch.zeros(lc.shape), torch.zeros(rc.shape)
+    dlc[:, 1:h + 1], drc[:, 1:h + 1] = dband[:, 1:h + 1, 0], dband[:, 1:h + 1, w + 1]
+    dtop, dbot = dband[:, 0].clone(), dband[:, h + 1].clone()
+    dw3 = dw3.reshape(3, 3, 3, nf).permute(0, 1, 3, 2)
+    return (dy.to(dt), dw0.to(dt), db0.to(dt), dw1.to(dt), db1.to(dt),
+            dw3.contiguous().to(dt), dlc, drc, dtop, dbot)
+
+
 def _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale):
     """Raise unless the operands are what K2 and K2b take."""
     bsz, h, w, nf = y.shape
@@ -253,6 +374,55 @@ def tail_band_plain_vjp(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *,
                  for v, d in zip(ins, grads))
 
 
+def _bwd_launch(lib, y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, scale,
+                rgb_range):
+    """Allocate K2b's outputs and scratch and call
+    ``m2t_tail_band_bwd`` of ``lib`` (the built library, or a timing variant
+    of it). Returns the f32 ``(dy, outA, outB, dw3, dlc, drc, dtop, dbot)``:
+    ``outA`` the last stage's ``dw | db`` by phase block (x4: by stage-1 block
+    j, (4, nf+1, nf); else by stage-0 block, (P, nf+1, nf)), ``outB`` (x4)
+    stage 0's by group (4, nf+1, nf); row nf of each is the bias gradient."""
+    bsz, h, w, nf = y.shape
+    P = scale * scale
+    cp = P * nf
+    dev = y.device
+    npr = lib.m2t_tail_band_bwd_blocks(scale)
+    if npr < 1:
+        raise RuntimeError(f"tail_band_bwd: CUDA error {-npr}")
+    na = 4 if scale == 4 else P
+
+    def f32(*shape, zero=False):
+        make = torch.zeros if zero else torch.empty
+        return make(shape, dtype=torch.float32, device=dev)
+
+    gm, part_a = f32(bsz, h, w, P * 3), f32(na, P * npr // na, nf + 1, nf)
+    part_b = f32(4, 4 * npr, nf + 1, nf) if scale == 4 else f32(1)
+    part3, dy_part = f32(P * npr, 27 * nf), f32(P, bsz, h, w, nf)
+    dy, dw3 = f32(bsz, h, w, nf), f32(3, 3, nf, 3)
+    out_a, out_b = f32(na, nf + 1, nf), f32(4, nf + 1, nf)
+    dlc, drc = f32(bsz, h + 2, cp, zero=True), f32(bsz, h + 2, cp, zero=True)
+    dtop, dbot = f32(bsz, w + 2, cp), f32(bsz, w + 2, cp)
+    code = lib.m2t_tail_band_bwd(
+        y.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w3.data_ptr(), lc.data_ptr(), rc.data_ptr(),
+        top.data_ptr(), bot.data_ptr(), g.data_ptr(), gm.data_ptr(),
+        part_a.data_ptr(), part_b.data_ptr(), part3.data_ptr(),
+        dy_part.data_ptr(), dy.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+        dw3.data_ptr(), dlc.data_ptr(), drc.data_ptr(), dtop.data_ptr(),
+        dbot.data_ptr(), bsz, h, w, nf, scale, float(rgb_range),
+        build.stream_ptr(dev))
+    build.check(code, "tail_band_bwd")
+    return dy, out_a, out_b, dw3, dlc, drc, dtop, dbot
+
+
+def _stage_grads(out: torch.Tensor):
+    """(blocks, nf+1, nf) block-wise ``dw | db`` -> ``dw`` (nf, blocks*nf) and
+    ``db`` (blocks*nf,), the layout of the permuted stage weights."""
+    nb, nf1, nf = out.shape
+    return (out[:, :nf].permute(1, 0, 2).reshape(nf, nb * nf),
+            out[:, nf].reshape(nb * nf))
+
+
 def tail_band_bwd(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *, scale: int,
                   rgb_range: float):
     """Launch K2b on CUDA tensors (K2's operands and the cotangent ``g``
@@ -261,7 +431,6 @@ def tail_band_bwd(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *, scale: int,
     _check(y, w0, b0, w1, b1, w3, lc, rc, top, bot, scale)
     bsz, h, w, nf = y.shape
     P = scale * scale
-    cp, cp0 = P * nf, (4 * nf if scale == 4 else P * nf)
     if tuple(g.shape) != (bsz, h, w, P * 3) or g.device != y.device:
         raise ValueError(f"tail_band_bwd: g {tuple(g.shape)} on {g.device} != "
                          f"{(bsz, h, w, P * 3)} on {y.device}")
@@ -270,34 +439,14 @@ def tail_band_bwd(y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, *, scale: int,
     if lib.m2t_tail_band_bwd_smem(nf, 1) > build.MAX_SMEM:
         raise ValueError(f"tail_band_bwd kernel: n_feats={nf} needs more "
                          "shared memory than a block has")
-    dev = y.device
-    tiles = bsz * (-(-h // 4)) * (-(-w // 16))
-
-    def f32(*shape, zero=False):
-        make = torch.zeros if zero else torch.empty
-        return make(shape, dtype=torch.float32, device=dev)
-
-    gm, dy = f32(bsz, h, w, P * 3), f32(bsz, h, w, nf)
-    part0, part3 = f32(tiles, nf * cp0 + cp0), f32(tiles, 27 * nf)
-    part1 = f32(tiles * 4, nf * 4 * nf + 4 * nf) if scale == 4 else f32(1)
-    dw0b0, dw1b1 = f32(nf * cp0 + cp0), f32(nf * 4 * nf + 4 * nf)
-    dw3 = f32(3, 3, nf, 3)
-    dlc, drc = f32(bsz, h + 2, cp, zero=True), f32(bsz, h + 2, cp, zero=True)
-    dtop, dbot = f32(bsz, w + 2, cp), f32(bsz, w + 2, cp)
-    code = lib.m2t_tail_band_bwd(
-        y.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w3.data_ptr(), lc.data_ptr(), rc.data_ptr(),
-        top.data_ptr(), bot.data_ptr(), g.data_ptr(), gm.data_ptr(),
-        part0.data_ptr(), part1.data_ptr(), part3.data_ptr(), dy.data_ptr(),
-        dw0b0.data_ptr(), dw1b1.data_ptr(), dw3.data_ptr(), dlc.data_ptr(),
-        drc.data_ptr(), dtop.data_ptr(), dbot.data_ptr(), bsz, h, w, nf,
-        scale, float(rgb_range), build.stream_ptr(dev))
-    build.check(code, "tail_band_bwd")
+    grads = _bwd_launch(lib, y, w0, b0, w1, b1, w3, lc, rc, top, bot, g, scale,
+                        rgb_range)
     tail_band_bwd.launches += 1
-    dw0, db0 = dw0b0[:nf * cp0].view(nf, cp0), dw0b0[nf * cp0:]
+    dy, out_a, out_b, dw3, dlc, drc, dtop, dbot = grads
     if scale == 4:
-        dw1, db1 = dw1b1[:nf * 4 * nf].view(nf, 4 * nf), dw1b1[nf * 4 * nf:]
+        (dw0, db0), (dw1, db1) = _stage_grads(out_b), _stage_grads(out_a)
     else:  # w1/b1 repeat w0/b0 and are not read at x2/x3
+        dw0, db0 = _stage_grads(out_a)
         dw1, db1 = torch.zeros_like(w1), torch.zeros_like(b1)
     grads = (dy, dw0, db0, dw1, db1, dw3)
     ops = (y, w0, b0, w1, b1, w3)

@@ -2,10 +2,20 @@
 m2trans_tpu/parallel/streaming.py for one device.
 
 Frames go through :func:`m2trans_apply_microbatched` on the model's
-device. :meth:`StreamingSR.stream` keeps ``depth`` frames in flight: the
-forward of frame t+1 is enqueued on the CUDA stream before the result of
-frame t is copied back, so host I/O overlaps device compute. Spatial
-sharding over a mesh is not ported yet.
+device. :meth:`StreamingSR.stream` keeps ``depth`` frames in flight. On a
+CUDA model each in-flight slot owns a pinned host input buffer and a pinned
+host output buffer (allocated per frame shape, reused): the frame goes up
+with a non-blocking copy, its forward is enqueued, the copy back into the
+slot's pinned buffer is enqueued non-blocking right after it and a CUDA event
+is recorded. Taking a result waits on that frame's own event only, so the
+host runs up to ``depth`` frames ahead and the copy back of frame t does
+not hold the forward of frame t+1. A frame's latency is the time from its
+enqueue to its result lying in the pinned buffer, read off its event's
+device timestamp (against an event recorded at the start of the stream), so
+it does not grow by what the consumer does before it asks for the frame. On
+a CPU model nothing is pinned and no event is used (the latency ends when
+the frame is handed out); frames and their order are the same. Spatial sharding over a
+mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,21 +65,57 @@ class StreamingSR:
         self.depth = max(1, depth)
         self.output_u8 = output_u8
         self.latencies_s = []
+        self._slots = {}  # (slot, frame shape) -> pinned (input, output)
 
     @torch.inference_mode()
-    def _fwd(self, frames: np.ndarray) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(frames, np.float32)).to(self.device)
+    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
         y = m2trans_apply_microbatched(self.model, x, self.cfg, self.policy)
         if self.output_u8:
             return torch.round(y.float() * 255.0).to(torch.uint8)
         return y.float()
 
+    def _pinned(self, slot: int, shape: Tuple[int, ...]):
+        """The slot's pinned host buffers for frames of ``shape``."""
+        key = (slot, tuple(shape))
+        if key not in self._slots:
+            s = self.cfg.scale
+            out_shape = (shape[0], shape[1] * s, shape[2] * s, 3)
+            self._slots[key] = (
+                torch.empty(shape, dtype=torch.float32, pin_memory=True),
+                torch.empty(out_shape, pin_memory=True,
+                            dtype=torch.uint8 if self.output_u8 else torch.float32))
+        return self._slots[key]
+
+    def _submit(self, frames: np.ndarray, slot: int):
+        """Enqueue one batch of frames; returns what :meth:`_take` needs.
+        CUDA: pinned upload, forward, copy back into the slot's pinned
+        buffer, all asynchronous, then an event. CPU: the result itself."""
+        frames = np.asarray(frames, np.float32)
+        if self.device.type != "cuda":
+            return self._fwd(torch.from_numpy(frames)), None
+        pin_in, pin_out = self._pinned(slot, frames.shape)
+        pin_in.copy_(torch.from_numpy(frames))
+        y = self._fwd(pin_in.to(self.device, non_blocking=True))
+        pin_out.copy_(y, non_blocking=True)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return pin_out, done
+
+    @staticmethod
+    def _take(out: torch.Tensor, done) -> np.ndarray:
+        """The frame's result on the host. CUDA: waits on the frame's own
+        event and hands out a copy (the slot's buffer is reused)."""
+        if done is None:
+            return out.numpy()
+        done.synchronize()
+        return out.numpy().copy()
+
     def warmup(self, frame_shape: Tuple[int, ...]) -> None:
-        self._fwd(np.zeros(frame_shape, np.float32)).cpu()
+        self._take(*self._submit(np.zeros(frame_shape, np.float32), 0))
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
         """One synchronous batch: (B, H, W, C) [0,1] -> (B, H*s, W*s, 3)."""
-        return self._fwd(frames).cpu().numpy()
+        return self._take(*self._submit(frames, 0))
 
     def stream(self, frames: Iterable[np.ndarray],
                collect_stats: bool = False) -> Iterator[np.ndarray]:
@@ -78,17 +124,30 @@ class StreamingSR:
         result on the host) go to ``self.latencies_s``."""
         self.latencies_s = []
         inflight = collections.deque()
+        base = host0 = None
+        if collect_stats and self.device.type == "cuda":
+            # the stream's clock: an event on the idle stream and the host
+            # time at which it passed
+            base = torch.cuda.Event(enable_timing=True)
+            base.record(torch.cuda.current_stream(self.device))
+            base.synchronize()
+            host0 = time.perf_counter()
 
         def pop():
-            out, t0 = inflight.popleft()
-            res = out.cpu().numpy()  # waits for this frame only
+            out, done, t0 = inflight.popleft()
+            # CUDA: waits on this frame's event; later frames stay in flight
+            res = self._take(out, done)
             if collect_stats:
-                self.latencies_s.append(time.perf_counter() - t0)
+                landed = (time.perf_counter() if done is None
+                          else host0 + base.elapsed_time(done) / 1e3)
+                self.latencies_s.append(landed - t0)
             return res
 
-        for frame in frames:
+        # at most `depth` frames are in flight and frame n - depth was
+        # popped before frame n is submitted, so frame n takes slot n mod depth
+        for n, frame in enumerate(frames):
             t0 = time.perf_counter()
-            inflight.append((self._fwd(frame), t0))
+            inflight.append((*self._submit(frame, n % self.depth), t0))
             if len(inflight) >= self.depth:
                 yield pop()
         while inflight:

@@ -16,7 +16,10 @@ max|b|)`` (it differs from its plain version in the f32 order of the tap
 sums), its gradients to the same bound; K1n as K1; K4 exactly. K1's
 bodies of base width 16 (a window to a warp at L = 0, to four warps at
 L = 1, to a cluster at L = 2), K2's 8x16 tile walk and K3's persistent grid
-have cases of their own at shapes that do not fill their rounds or tiles.
+have cases of their own at shapes that do not fill their rounds or tiles; so
+have K1b's bodies (a window to four warps at L = 0 / L = 1, to a cluster at
+L = 2, the general body at base width 32) and K2b's roles, each also run
+twice and held to the same bits.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv, ff_conv_plain, ff_wei
 from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch,
     cftm_branch_bwd,
+    cftm_branch_bwd_variant,
     cftm_branch_plain,
     cftm_branch_plain_vjp,
     cftm_branch_variant,
@@ -49,6 +53,7 @@ from m2trans_tpu_torch.ops.kernels.tail_band import (
     tail_band_plain,
     tail_band_plain_vjp,
 )
+from m2trans_tpu_torch.parallel.streaming import StreamingSR
 from m2trans_tpu_torch.train.evaluate import evaluate_dataset
 from m2trans_tpu_torch.train.loop import make_optimizer, make_train_step
 
@@ -369,6 +374,153 @@ def test_k2b_matches_plain_vjp(dev, scale, hw):
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype and a.shape == b.shape, i
         _grad_close(a, b, i)
+
+
+def _k1b_case(dev, levels, shape, cb, seed):
+    rng = np.random.default_rng(seed)
+    bsz, h, w = shape
+    c = cb * 4 ** levels
+    body = _randn(rng, (bsz, h, w, 4 * cb), dtype=torch.bfloat16).to(dev)
+    args = [body[..., cb:2 * cb],
+            _randn(rng, (c, 3 * c), c ** -0.5, torch.bfloat16).to(dev),
+            _randn(rng, (10, c // 2)).to(dev), _randn(rng, (10, c // 2)).to(dev),
+            torch.from_numpy(rng.uniform(0.5, 1.5, (bsz, cb)).astype(np.float32)).to(dev),
+            _randn(rng, (bsz, cb), 0.2).to(dev)]
+    add = _randn(rng, (bsz, h, w, cb), dtype=torch.bfloat16).to(dev)
+    g = _randn(rng, (bsz, h, w, cb), dtype=torch.bfloat16).to(dev)
+    return args, add, g
+
+
+def _k1b_check(args, add, g, levels):
+    got = cftm_branch_bwd(*args, g, x_add=add, levels=levels)
+    again = cftm_branch_bwd(*args, g, x_add=add, levels=levels)
+    want = cftm_branch_plain_vjp(*args, g, x_add=add, levels=levels)
+    names = ("dx", "dx_add", "ds", "dt", "dw_qkv", "drel_h", "drel_w")
+    for name, a, a2, b in zip(names, got, again, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert torch.equal(a, a2), f"{name}: two runs differ"
+        _grad_close(a, b, name)
+
+
+# one window, frames that do not fill a round, the single-frame shape
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [None, (2, 64, 96), (3, 96, 32), (1, 512, 512)])
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("levels", [0, 1, 2])
+def test_k1b_bodies_match_plain_vjp(dev, levels, with_add, shape):
+    """Every body of base width 16 against the plain VJP, two runs bit for
+    bit."""
+    if shape is None:
+        shape = (1, 8 * 2 ** levels, 8 * 2 ** levels)
+    assert cftm_branch_bwd_variant(16, levels) == (
+        "w16_group", "w64_group", "c256_cluster4")[levels]
+    args, add, g = _k1b_case(dev, levels, shape, 16, 40 + levels)
+    _k1b_check(args, add if with_add else None, g, levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [0, 1])
+@pytest.mark.parametrize("with_add", [False, True])
+def test_k1b_other_widths_run_the_general_body(dev, levels, with_add):
+    assert cftm_branch_bwd_variant(32, levels) == "general"
+    args, add, g = _k1b_case(dev, levels, (2, 32, 48), 32, 50 + levels)
+    _k1b_check(args, add if with_add else None, g, levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [16, 32, 64])
+@pytest.mark.parametrize("scale", [2, 3, 4])
+def test_k2b_roles_match_plain_vjp(dev, scale, nf):
+    """A frame that is no multiple of the 8x16 tile, every width, two runs
+    bit for bit."""
+    rng = np.random.default_rng(60 + scale + nf)
+
+    def u(shape, fan_in):
+        b = fan_in ** -0.5
+        return torch.from_numpy(rng.uniform(-b, b, shape).astype(np.float32)).to(dev)
+
+    cp0 = 4 * nf if scale == 4 else nf * scale * scale
+    p = {"c0": {"w": u((cp0, nf, 1, 1), nf), "b": u((cp0,), nf)}}
+    if scale == 4:
+        p["c1"] = {"w": u((4 * nf, nf, 1, 1), nf), "b": u((4 * nf,), nf)}
+        p["c2"] = {"w": u((3, nf, 3, 3), 9 * nf)}
+    else:
+        p["c1"] = {"w": u((3, nf, 3, 3), 9 * nf)}
+    ops = tail_band_operands(
+        p, _randn(rng, (2, 100, 76, nf), dtype=torch.bfloat16).to(dev), scale=scale)
+    g = _randn(rng, (2, 100, 76, scale * scale * 3), dtype=torch.bfloat16).to(dev)
+    # no cotangent where rounding decides the clamp's mask: the kernel's and
+    # the plain version's pre-clamp outputs differ by an f32 sum order
+    out = tail_band_plain(*ops, scale=scale, rgb_range=1.0).float()
+    g = g * ((out > 0.02) & (out < 0.98)).to(g.dtype)
+    got = tail_band_bwd(*ops, g, scale=scale, rgb_range=1.0)
+    again = tail_band_bwd(*ops, g, scale=scale, rgb_range=1.0)
+    want = tail_band_plain_vjp(*ops, g, scale=scale, rgb_range=1.0)
+    for i, (a, a2, b) in enumerate(zip(got, again, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert bool(torch.isfinite(a.float()).all()), i
+        assert torch.equal(a, a2), f"gradient {i}: two runs differ"
+        _grad_close(a, b, i)
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_train_step_gradients_within_the_bf16_bound(dev):
+    """The step's gradients through the kernels against the plain bf16 step:
+    relative L2 per parameter <= max(5e-2, 1.5 e), e the plain bf16
+    gradient's distance from f32."""
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    hr = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    grads = {}
+    for name, kw in (("kernels", dict(dtype="bfloat16", use_pallas=True)),
+                     ("plain", dict(dtype="bfloat16", use_pallas=False)),
+                     ("f32", dict(dtype="float32", use_pallas=False))):
+        cfg = Config(scale=4, n_feats=64, n_blocks=1, **kw)
+        model = init_m2trans(cfg, seed=0, device=dev)
+        make_train_step(cfg, model, make_optimizer(cfg, model))(x, hr)
+        grads[name] = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    for n, gk in grads["kernels"].items():
+        e = _rel_l2(grads["plain"][n], grads["f32"][n])
+        assert _rel_l2(gk, grads["plain"][n]) <= max(5e-2, 1.5 * e), n
+
+
+@pytest.mark.cuda
+def test_streaming_depth_2_pipelines(dev):
+    """On a CUDA model a slot's buffers are pinned, pop() waits on the frame's
+    own event, depth 2 yields depth 1's frames, and neither its p50 latency
+    nor its stream is above depth 1's (best of three runs each, by more than
+    25%)."""
+    import time
+
+    cfg = Config(scale=4, n_feats=64, n_blocks=2)
+    model = init_m2trans(cfg, seed=0, device=dev)
+    frames = [np.random.default_rng(i).uniform(0, 1, (1, 96, 96, 3)).astype(np.float32)
+              for i in range(12)]
+    outs, secs, p50 = {}, {1: [], 2: []}, {1: [], 2: []}
+    runs = {depth: StreamingSR(model, cfg, depth=depth) for depth in (1, 2)}
+    for depth, run in runs.items():
+        run.warmup(frames[0].shape)
+        list(run.stream(frames[:3]))
+    for _ in range(3):  # in turns; the best of three a depth (host timing is noisy)
+        for depth, run in runs.items():
+            t0 = time.perf_counter()
+            outs[depth] = list(run.stream(frames, collect_stats=True))
+            secs[depth].append(time.perf_counter() - t0)
+            p50[depth].append(run.latency_percentiles()["p50_s"])
+            assert len(run._slots) == depth and len(run.latencies_s) == len(frames)
+            assert all(buf.is_pinned() for pair in run._slots.values() for buf in pair)
+    for a, b in zip(outs[1], outs[2]):
+        np.testing.assert_array_equal(a, b)
+    assert min(secs[2]) <= 1.25 * min(secs[1]), secs
+    assert min(p50[2]) <= 1.25 * min(p50[1]), p50
 
 
 @pytest.mark.cuda
