@@ -13,7 +13,12 @@ m2trans_tpu_torch.infer``, a flagship bf16 train step (batch 2 x 96x96 ->
 synthetic US1K tree, the standalone ops (``tblock_apply``,
 ``make_branch_fn``, the lane relayouts) and the eval CLI ``python -m
 m2trans_tpu_torch.test`` with FSIM/GMSD on a synthetic benchmark tree, and
-times the kernels, the forward and the train step with CUDA events. Every
+times the kernels, the forward and the train step with CUDA events; last
+(phase 17) the training recipe's step: the same train step with the MedCLIP
+semantic loss at MedCLIP's published width (Swin-tiny 224, BERT-base,
+seeded random weights), held against the plain bf16 step, and the
+``Trainer`` for an epoch with a captions file, timed with and without the
+loss. Every
 phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
@@ -322,6 +327,57 @@ def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96)):
     Image.fromarray(img[::4, ::4]).save(os.path.join(dirs["blr"], "b0x4.jpg"))
 
 
+def word_tokenizer(vocab_size: int):
+    """A stand-in for MedCLIP's tokenizer (the GPU machine has no
+    ``transformers``): [CLS] = 2, an id a word from its CRC, [SEP] = 3, zero
+    padding to ``max_length``; numpy, as ``SemanticLossFn.tokenize`` asks."""
+    import zlib
+
+    import numpy as np
+
+    def tokenize(texts, max_length, **_):
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            words = [5 + zlib.crc32(w.encode()) % (vocab_size - 5)
+                     for w in text.lower().split()]
+            row = [2] + words[:max_length - 2] + [3]
+            ids[i, :len(row)] = row
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+    return tokenize
+
+
+def profile_call(fn, n: int = 2, warm: int = 1) -> dict:
+    """One torch.profiler (CUPTI) run over ``n`` calls of ``fn`` after
+    ``warm``, device activity only (the host's ops are not traced, which
+    keeps the profile of a 3,000-kernel step quick): the device ms and the
+    kernels (copies and memsets left out) of one call, and the 6 kernels
+    with the most device time; ms None where the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "device_time_total", None)
+            kernels.append((ev.cuda_time_total if us is None else us, ev.count, ev.key))
+    total = sum(k[0] for k in kernels)
+    top = sorted(kernels, reverse=True)[:6]
+    return {"ms": total / 1e3 / n if total else None,
+            "launches": sum(c for _, c, key in kernels
+                            if not key.startswith(("Memcpy", "Memset"))) // n,
+            "top": "; ".join(f"{key[:48]} {us / 1e3 / n:.3f} ms x{c // n}"
+                             for us, c, key in top)}
+
+
 def profile_split(fn) -> str:
     """Device time of one call of ``fn`` by kind of kernel, from
     torch.profiler (CUPTI); "not measured" where it records no device
@@ -372,6 +428,218 @@ def profile_split(fn) -> str:
         return "not measured (the profiler recorded no device time)"
     return ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items()) + \
         f"; total {total:.3f} ms"
+
+
+def semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work,
+                        mcfg=None, clip_size=224, timed=True) -> None:
+    """Phase 17, the recipe's step: the x4 bf16 train step with the MedCLIP
+    semantic loss at MedCLIP's published width (``mcfg`` None: Swin-tiny
+    224, BERT-base; seeded random weights), 3 patches an image, token ids of
+    length 64 from a seed with a ragged mask, held against the plain bf16
+    step; the staged loss against the loss in one piece; MedCLIP in bf16;
+    the Trainer for an epoch with captions; then (``timed``) event and
+    device times with and without the loss. ``loss_k`` and
+    ``train_launches`` are phase 10's L1 and launches of the same step
+    without the loss. With a small ``mcfg`` and ``timed=False`` it also runs
+    on the CPU (the kernels' plain versions, no launches), as a CPU test
+    rehearses it."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.losses.semantic import (
+        SemanticLossFn,
+        clip_image_sims,
+        clip_text_embed,
+        crop_offsets,
+        semantic_loss_staged,
+    )
+    from m2trans_tpu_torch.models.m2trans import init_m2trans
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
+    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch, cftm_branch_bwd
+    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_bwd, tail_band_fused
+    from m2trans_tpu_torch.train.loop import Trainer, make_optimizer, make_train_step
+
+    def step_grads(m):
+        return {n: p.grad for n, p in m.named_parameters() if p.requires_grad}
+
+    def sub(a, b):  # device ms of a minus b's
+        return None if None in (a["ms"], b["ms"]) else a["ms"] - b["ms"]
+
+    t0 = time.perf_counter()
+    mcfg = mcfg or MedCLIPConfig()
+    size = dict(clip_size=clip_size)
+    medclip = init_medclip(mcfg, seed=4, device=dev)
+    n_medclip = sum(p.numel() for p in medclip.parameters())
+    tokenizer = word_tokenizer(mcfg.text.vocab_size)
+    fns = {"float32": SemanticLossFn(medclip, mcfg, tokenizer, **size),
+           "bfloat16": SemanticLossFn(medclip, mcfg, tokenizer, dtype=torch.bfloat16, **size)}
+    init_s = time.perf_counter() - t0
+    trng = np.random.default_rng(17)
+    ids = trng.integers(5, mcfg.text.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), np.int32)
+    ids[1, 23:] = mask[1, 23:] = 0
+    caps = {"input_ids": ids, "attention_mask": mask}
+    ccfg = tcfg.replace(lambda_clip=0.01)
+
+    def clip_model(c, fn):
+        m = init_m2trans(c, seed=0, device=dev)
+        return m, make_train_step(c, m, make_optimizer(c, m), fn)
+
+    def clip_step(st):  # the same crop offsets every call
+        return st(lr_b, hr_b, captions=caps, rng=np.random.default_rng(18))
+
+    counters = (cftm_branch, ff_conv, tail_band_fused, cftm_branch_bwd, tail_band_bwd)
+    model_c, step_c = clip_model(ccfg, fns["float32"])
+    for f in counters:
+        f.launches = 0
+    aux = {k: float(v) for k, v in clip_step(step_c).items()}
+    clip_launches = {f.__name__: f.launches for f in counters}
+    need(clip_launches == train_launches,
+         f"the semantic-loss step launched {clip_launches}, want {train_launches}")
+    need(all(np.isfinite(v) for v in aux.values()) and aux["clip"] > 0,
+         f"semantic-loss step losses {aux}")
+    need(abs(aux["l1"] - loss_k) <= 1e-5 * loss_k, f"the semantic-loss step's L1 "
+         f"{aux['l1']} is not the L1 step's {loss_k} (same weights and batch)")
+    grads_c = step_grads(model_c)
+    ref = {}
+    for name, c in (("plain", ccfg.replace(use_pallas=False)),
+                    ("f32", ccfg.replace(dtype="float32", use_pallas=False)),
+                    ("l1 only", tcfg.replace(lambda_clip=0.0))):
+        m, st = clip_model(c, fns["float32"])
+        ref[name] = (float(clip_step(st)["clip"]), step_grads(m))
+    worst, worst_name, worst_e = 0.0, "", 0.0
+    for name, gr in grads_c.items():
+        need(gr is not None and torch_isfinite(gr), f"gradient of {name} not finite")
+        d = rel_l2(gr, ref["plain"][1][name])
+        e = rel_l2(ref["plain"][1][name], ref["f32"][1][name])
+        need(d <= max(STEP_TOL, 1.5 * e),
+             f"semantic-loss step: {name} kernels vs plain bf16 rel L2 {d:.4g} > "
+             f"max({STEP_TOL}, 1.5 * {e:.4g})")
+        if d > worst:
+            worst, worst_name, worst_e = d, name, e
+    # d clip / d sr reaches the model through K2b's cotangent
+    moved = rel_l2(grads_c["head.weight"], ref["l1 only"][1]["head.weight"])
+    need(moved > 0, "the semantic loss does not move the gradient")
+
+    # the staged loss equals the loss in one piece (f32 encoders)
+    fn32 = fns["float32"]
+    with torch.no_grad():
+        sr_t = torch.rand(hr_b.shape, generator=torch.Generator().manual_seed(19)).to(dev)
+        offs = crop_offsets(np.random.default_rng(19), *hr_b.shape[:3], 2, clip_size)
+        const = fn32.const_stage_from_params(fn32.model, hr_b, caps, offsets=offs)
+        staged = float(fn32.loss_staged_from_params(fn32.model, sr_t, const))
+        mono = float(fn32(sr_t, hr_b, caps, offsets=offs))
+    need(abs(staged - mono) <= 1e-4 * abs(mono),
+         f"staged semantic loss {staged} vs one piece {mono}: over rtol 1e-4")
+
+    # medclip_dtype bfloat16 runs too, within the JAX test's bf16 bound
+    model_16, step_16 = clip_model(ccfg, fns["bfloat16"])
+    aux16 = {k: float(v) for k, v in clip_step(step_16).items()}
+    c32, c16 = aux["clip"] / ccfg.lambda_clip, aux16["clip"] / ccfg.lambda_clip
+    need(all(np.isfinite(v) for v in aux16.values()) and aux16["clip"] > 0
+         and abs(c16 - c32) < 0.05 * max(1.0, abs(c32)),
+         f"bf16 MedCLIP loss {c16} vs f32 {c32}")
+
+    # the Trainer for an epoch of 3 steps with captions, on a US1K tree
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        write_us1k_tree(os.path.join(tmp, "data"), np.random.default_rng(3))
+        cap_file = os.path.join(tmp, "captions.txt")
+        with open(cap_file, "w", encoding="utf-16") as f:
+            f.write("carotid artery in long axis\nthyroid nodule\nliver parenchyma\n")
+        with open(os.path.join(ROOT, "configs", "M2Trans_x4.yml")) as f:
+            ycfg = yaml.safe_load(f)
+        ycfg.update(dtype="bfloat16", use_pallas=True, data_path=os.path.join(tmp, "data"),
+                    train_range=[1, 4], data_repeat=2, epochs=1, log_every=1,
+                    eval_sets=["CCA-US"], log_path=os.path.join(tmp, "exp"), threads=2,
+                    captions_path=cap_file, n_feats=tcfg.n_feats, n_blocks=tcfg.n_blocks)
+        yml = os.path.join(tmp, "train.yml")
+        with open(yml, "w") as f:
+            yaml.dump(ycfg, f)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            trainer = Trainer(load_config(yml), device=dev, semantic_loss_fn=fn32)
+            trainer.run()
+            sys.stdout.log.close()
+        trainer_s = time.perf_counter() - t1
+    clip_logged = [float(ln.split("CLIPloss: ")[1].split()[0])
+                   for ln in buf.getvalue().splitlines() if "CLIPloss: " in ln]
+    need(len(clip_logged) == 3 and min(clip_logged) > 0,
+         f"Trainer with captions logged CLIPloss {clip_logged}")
+    correct_s = time.perf_counter() - t0
+    print(f"phase 17 semantic-loss train step x4 bf16 + kernels, 2x96x96 -> 384x384, "
+          f"MedCLIP at {mcfg.vision.image_size}² / BERT {mcfg.text.num_layers} layers "
+          f"({n_medclip / 1e6:.1f} M parameters, seeded, built in {init_s:.1f} s), 3 "
+          f"patches an image, 64 tokens: launches {clip_launches}; loss {aux['loss']:.6f} "
+          f"L1 {aux['l1']:.6f} clip {aux['clip']:.8f} (bf16 MedCLIP clip "
+          f"{aux16['clip']:.8f}); gradients vs plain bf16 worst rel L2 {worst:.4g} "
+          f"({worst_name}; plain vs f32 {worst_e:.4g}, bound "
+          f"{max(STEP_TOL, 1.5 * worst_e):.4g}); the loss moves head.weight's gradient "
+          f"by rel L2 {moved:.3g}; staged {staged:.8f} vs one piece {mono:.8f}; Trainer "
+          f"1 epoch with captions in {trainer_s:.1f} s, CLIPloss {clip_logged}; checks "
+          f"in {correct_s:.1f} s")
+    if not timed:
+        return
+
+    # times: CUDA events first (median of 10), peak memory, then the profiler
+    model_l1, step_l1 = clip_model(tcfg.replace(lambda_clip=0.0), None)
+    runs = {"l1": lambda: step_l1(lr_b, hr_b), "clip f32": lambda: clip_step(step_c),
+            "clip bf16": lambda: clip_step(step_16)}
+    ev_ms, peak_gb = {}, {}
+    for name, fn in runs.items():
+        ev_ms[name] = time_ms(fn, n=10)
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak_gb[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = {name: profile_call(fn) for name, fn in runs.items()}
+    # MedCLIP's parts, f32 and bf16: BERT (text stage), the HR-side Swin
+    # forward (const stage, resize and crops included), the SR-side Swin
+    # forward + backward to sr (the differentiated stage)
+    sr_leaf = torch.rand(hr_b.shape, generator=torch.Generator().manual_seed(20)).to(dev)
+    parts = {}
+    for dname, fn in fns.items():
+        ids_t = torch.as_tensor(ids, device=dev).long()
+        mask_t = torch.as_tensor(mask, device=dev).long()
+        with torch.no_grad():
+            t_emb = clip_text_embed(fn.model, ids_t, mask_t)
+            sim_y = clip_image_sims(fn.model, hr_b, offs, t_emb)
+
+        def sr_side():
+            s = sr_leaf.bfloat16().requires_grad_(True)  # the step's sr is bf16
+            semantic_loss_staged(fn.model, s, offs, t_emb, sim_y).backward()
+
+        def text():
+            with torch.no_grad():
+                clip_text_embed(fn.model, ids_t, mask_t)
+
+        def hr_side():
+            with torch.no_grad():
+                clip_image_sims(fn.model, hr_b, offs, t_emb)
+
+        parts[dname] = {"BERT": profile_call(text), "Swin fwd (HR)": profile_call(hr_side),
+                        "Swin fwd + bwd (SR)": profile_call(sr_side)}
+    split_c = profile_split(runs["clip f32"])
+    medclip_txt = "; ".join(
+        f"{d} " + ", ".join(f"{k} {fmt_ms(v['ms'])} ({v['launches']} kernels)"
+                            for k, v in p.items())
+        + f"; in the step (with - without) {fmt_ms(sub(prof[f'clip {d[:4]}'], prof['l1']))}"
+        for d, p in (("f32", parts["float32"]), ("bf16", parts["bfloat16"])))
+    print("phase 17 times: event ms (median of 10) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ev_ms.items())
+          + "; device ms (profiler) " + ", ".join(f"{k} {fmt_ms(v['ms'])}"
+                                                  for k, v in prof.items())
+          + "; kernels launched a step " + ", ".join(f"{k} {v['launches']}"
+                                                     for k, v in prof.items())
+          + "; peak GiB " + ", ".join(f"{k} {v:.2f}" for k, v in peak_gb.items())
+          + f"; MedCLIP by part (device ms): {medclip_txt}; top kernels of the f32 SR "
+          f"side: {parts['float32']['Swin fwd + bwd (SR)']['top']}; of the bf16 SR side: "
+          f"{parts['bfloat16']['Swin fwd + bwd (SR)']['top']}; split of the f32-MedCLIP "
+          f"step (MedCLIP's kernels in 'other', the MedCLIP bucket the difference "
+          f"above): {split_c}; phase 17 in {time.perf_counter() - t0:.1f} s")
 
 
 def run() -> dict:
@@ -1028,6 +1296,9 @@ def run() -> dict:
           + "; ".join(f"{k} {v[0]:.4f} | {fmt_ms(v[2])} vs permute().contiguous() "
                       f"{v[1]:.4f} | {fmt_ms(v[3])}, bound {v[4]['bound_ms']:.4f}"
                       for k, v in k4.items()))
+
+    # 17. the recipe's step with the MedCLIP semantic loss
+    semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work)
 
     need_no_reference_package()
 

@@ -8,7 +8,10 @@ The config is the JAX package's flat YAML; ``dtype: bfloat16`` with
 ``use_pallas: true`` trains through the port's CUDA kernels (K1/K2 forward,
 K1b/K2b backward). ``--device`` defaults to ``cuda`` and fails when no
 CUDA device is present; the CPU runs only when asked for, with the
-kernels' plain versions.
+kernels' plain versions. With ``lambda_clip > 0`` and ``medclip_path`` (a
+directory with the released MedCLIP ``pytorch_model.bin`` and its
+tokenizer files) the step adds the MedCLIP semantic loss on the captions of
+``captions_path``; building the tokenizer needs ``transformers``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ def main(argv=None) -> None:
     if cfg.dtype == "float32":
         print("## dtype float32 runs parity numerics (TF32 off); dtype: "
               "bfloat16 with use_pallas: true runs the CUDA kernels ##")
-    if cfg.lambda_clip > 0 and not cfg.medclip_path:
+    semantic_loss_fn = None
+    if cfg.lambda_clip > 0 and cfg.medclip_path:
+        from m2trans_tpu_torch.losses.semantic import make_semantic_loss
+
+        semantic_loss_fn = make_semantic_loss(cfg, device)
+    elif cfg.lambda_clip > 0:
         print("## lambda_clip > 0 but no medclip_path set: training with "
               "L1 only (set medclip_path to pretrained MedCLIP weights) ##")
 
@@ -48,7 +56,7 @@ def main(argv=None) -> None:
         from tensorboardX import SummaryWriter
     except ImportError:
         SummaryWriter = None
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, semantic_loss_fn=semantic_loss_fn)
     if SummaryWriter is not None:
         trainer.writer = SummaryWriter(logdir=trainer.experiment_path)
     print(f"## params: {param_count(trainer.model)} "

@@ -16,6 +16,7 @@ import torch
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import M2Trans
+from m2trans_tpu_torch.models.medclip.model import MedCLIP, MedCLIPConfig
 from m2trans_tpu_torch.train.convert import (
     load_reference_state_dict,
     params_to_torch_state_dict,
@@ -38,3 +39,11 @@ def params_from_module(model: M2Trans, cfg: Config) -> Dict[str, Any]:
     """Port model -> JAX params pytree of numpy arrays."""
     sd = {k: v.numpy() for k, v in reference_state_dict(model).items()}
     return torch_state_dict_to_params(sd, cfg)
+
+
+def medclip_from_jax(params: Dict[str, Any], mcfg: MedCLIPConfig,
+                     device: Optional[torch.device] = None) -> MedCLIP:
+    """The JAX package's MedCLIP params pytree (``init_medclip``'s or
+    ``load_medclip_torch``'s, as numpy arrays) -> the port's MedCLIP. Both
+    keep the same tree, so this is a copy."""
+    return MedCLIP(mcfg, params).to(device or "cpu")

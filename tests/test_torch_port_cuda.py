@@ -543,6 +543,47 @@ def test_train_step_through_kernels(dev):
             assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
+@pytest.mark.cuda
+def test_semantic_loss_step_through_kernels(dev):
+    """The x4 step with the MedCLIP semantic loss (tiny random MedCLIP, clip
+    size 56, 3 patches) at the training shapes, batch 2 x 96x96 -> 384x384,
+    one block: the kernel launches of the L1 step, clip > 0, and every
+    gradient within max(5e-2, 1.5 e) relative L2 of the plain bf16 step
+    with the same weights, tokens and crop offsets (e the plain bf16
+    gradient's distance from f32)."""
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+
+    mcfg = MedCLIPConfig.tiny()
+    fn = SemanticLossFn(init_medclip(mcfg, seed=0, device=dev), mcfg, None, clip_size=56)
+    ids = np.random.default_rng(0).integers(5, 128, (2, 16)).astype(np.int32)
+    mask = np.ones((2, 16), np.int32)
+    mask[1, 9:] = 0
+    caps = {"input_ids": ids, "attention_mask": mask}
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    hr = torch.rand(2, 384, 384, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    fns = (cftm_branch, ff_conv, tail_band_fused, cftm_branch_bwd, tail_band_bwd)
+    grads, clips = {}, {}
+    for name, kw in (("kernels", dict(dtype="bfloat16", use_pallas=True)),
+                     ("plain", dict(dtype="bfloat16", use_pallas=False)),
+                     ("f32", dict(dtype="float32", use_pallas=False))):
+        cfg = Config(scale=4, n_feats=64, n_blocks=1, lambda_clip=0.01, **kw)
+        model = init_m2trans(cfg, seed=0, device=dev)
+        counts = [f.launches for f in fns]
+        aux = make_train_step(cfg, model, make_optimizer(cfg, model), fn)(
+            x, hr, captions=caps, rng=np.random.default_rng(3))
+        torch.cuda.synchronize()
+        if name == "kernels":
+            assert [f.launches - n for f, n in zip(fns, counts)] == [4, 1, 1, 4, 1]
+        clips[name] = float(aux["clip"])
+        grads[name] = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    assert clips["kernels"] > 0 and abs(clips["kernels"] - clips["plain"]) < 0.05 * clips["plain"]
+    for n, gk in grads["kernels"].items():
+        assert bool(torch.isfinite(gk).all()), n
+        e = _rel_l2(grads["plain"][n], grads["f32"][n])
+        assert _rel_l2(gk, grads["plain"][n]) <= max(5e-2, 1.5 * e), n
+
+
 def _ff_operands(rng, shape):
     c = shape[-1]
     return (_randn(rng, shape, dtype=torch.bfloat16),

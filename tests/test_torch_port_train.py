@@ -332,12 +332,45 @@ def test_train_cli_needs_a_card_unless_cpu(tmp_path, monkeypatch):
         train_cli.main(["--config", "configs/M2Trans_x4.yml"])
 
 
-@pytest.mark.parametrize("option", [
-    {"cutmix": True}, {"cutout": True}, {"data_add_noise": True},
-    {"medclip_path": "medclip.pt"}, {"mesh_data": 2}])
+@pytest.mark.parametrize("option", [{"mesh_data": 2}, {"profile_dir": "prof"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(Config(**option))
+        Trainer(Config(**option), device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    {"cutmix": True}, {"cutout": True}, {"data_add_noise": True},
+    {"medclip_path": "medclip", "lambda_clip": 0.5}])
+def test_recipe_options_train(tmp_path, monkeypatch, option):
+    """The options that raised before the recipe was ported: Trainer on a
+    tiny tree takes one step with each (the semantic loss with a tiny
+    random MedCLIP, a 56x56 clip size and a utf-16 captions file)."""
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+
+    monkeypatch.setattr(sys, "stdout", sys.stdout)  # the trainer tees stdout
+    root = write_tree(tmp_path / "data", np.random.default_rng(8))
+    kw = dict(tree_kw(root, tmp_path), patch_size=64, **option)
+    fn = None
+    if "medclip_path" in option:
+        caps = tmp_path / "caps.txt"
+        caps.write_text("carotid artery\nliver\n", encoding="utf-16")
+        kw["captions_path"] = str(caps)
+        mcfg = MedCLIPConfig.tiny()
+
+        def tokenizer(texts, max_length, **_):  # word -> an id from its length
+            ids = np.zeros((len(texts), max_length), np.int64)
+            for i, text in enumerate(texts):
+                words = [5 + len(w) for w in text.split()][:max_length]
+                ids[i, :len(words)] = words
+            return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+        fn = SemanticLossFn(init_medclip(mcfg, seed=1), mcfg, tokenizer, clip_size=56)
+    trainer = Trainer(Config(**kw), device="cpu", semantic_loss_fn=fn)
+    aux = trainer.step(0, next(iter(trainer.train_loader)),
+                       do_cutout=bool(option.get("cutout")))
+    assert all(bool(torch.isfinite(v)) for v in aux.values())
+    assert (float(aux["clip"]) > 0) == (fn is not None)
 
 
 def test_full_metrics_raise():
