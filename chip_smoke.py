@@ -18,7 +18,13 @@ times the kernels, the forward and the train step with CUDA events; last
 semantic loss at MedCLIP's published width (Swin-tiny 224, BERT-base,
 seeded random weights), held against the plain bf16 step, and the
 ``Trainer`` for an epoch with a captions file, timed with and without the
-loss. Every
+loss; then (phases 18 and 19) the frame sharded by rows and the data
+parallelism: the sharded flagship forward at 1x512x512 (bf16 + kernels at
+world size 1 under NCCL and on 2 ranks that share the card under gloo, f32
+at 1x256x256) against the single-device forward, the infer CLI under
+``torch.distributed.run --nproc_per_node 2`` with ``--mesh-space 2``, one
+DDP train step of 2 ranks against phase 10's one-process step and the train
+CLI with ``mesh_data: 2``. Every
 phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
@@ -38,6 +44,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -106,11 +113,11 @@ def errs(a, b):
     return float(d.max()), float(d.mean())
 
 
-def device_ms(fn, n: int = 20, warm: int = 3):
+def device_ms(fn, n: int = 20, warm: int = 3, copies: bool = False):
     """Device time of one call of ``fn``: the sum over its kernels from
     torch.profiler (CUPTI) over ``n`` calls, so host launch overhead and the
     gaps between kernels are left out; None where the profiler records no
-    device time."""
+    device time. With ``copies``: (that, the part of it in memory copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,12 +128,16 @@ def device_ms(fn, n: int = 20, warm: int = 3):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = copy = 0.0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(ev, "device_time_total", None)
-            total += ev.cuda_time_total if us is None else us
-    return total / 1e3 / n if total else None
+            us = ev.cuda_time_total if us is None else us
+            total += us
+            copy += us if "memcpy" in ev.key.lower() else 0.0
+    if not total:
+        return (None, None) if copies else None
+    return (total / 1e3 / n, copy / 1e3 / n) if copies else total / 1e3 / n
 
 
 def fmt_ms(t) -> str:
@@ -640,6 +651,296 @@ def semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work,
           f"{parts['bfloat16']['Swin fwd + bwd (SR)']['top']}; split of the f32-MedCLIP "
           f"step (MedCLIP's kernels in 'other', the MedCLIP bucket the difference "
           f"above): {split_c}; phase 17 in {time.perf_counter() - t0:.1f} s")
+
+
+SHARD_FRAME = (1, 512, 512)   # the sharded serving frame, LR
+SHARD_F32_FRAME = (1, 256, 256)
+SHARD_F32_ATOL = 2e-4         # f32, TF32 off (tests/test_spatial.py)
+
+
+def seeded_frame(shape, seed):
+    import torch
+
+    return torch.rand(*shape, 3, generator=torch.Generator().manual_seed(seed))
+
+
+def parallel_rank(rank, n, lr_np, hr_np):
+    """One of ``n`` ranks that share the card under gloo (phases 18 and 19):
+    the sharded flagship forward (bf16 + kernels at 1x512x512 with its
+    kernel launches, event and device time; f32 at 1x256x256) against the
+    single-device forward on this rank, then one DDP train step on the
+    global batch (lr_np, hr_np) with its launches; returns what it found."""
+    import torch
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans, m2trans_apply
+    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
+    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch, cftm_branch_bwd
+    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_bwd, tail_band_fused
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
+    from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
+    from m2trans_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    dev = mesh_lib.init_from_env("cuda")
+    out = {"device": str(dev), "shared": mesh_lib.shared_card_note(),
+           "backend": mesh_lib.backend()}
+    cfg = load_config(os.path.join(ROOT, CONFIG))
+    model = init_m2trans(cfg, seed=0, device=dev)
+    mesh = mesh_lib.space_mesh()
+    kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
+    fwd_counters = (cftm_branch, ff_conv, tail_band_fused)
+    with torch.inference_mode():
+        x = seeded_frame(SHARD_FRAME, 5).to(dev)
+        single = m2trans_apply(model, x, cfg, kern)
+        for f in fwd_counters:
+            f.launches = 0
+        y = spatial_sharded_forward(model, x, cfg, mesh=mesh, policy=kern)
+        torch.cuda.synchronize()
+        out["launches"] = [f.launches for f in fwd_counters]
+        out["shape"] = tuple(y.shape)
+        out["finite"] = bool(torch.isfinite(y.float()).all())
+        out["err"] = errs(y, single)
+        out["ms"] = time_ms(lambda: spatial_sharded_forward(model, x, cfg, mesh=mesh,
+                                                            policy=kern), n=5, warm=1)
+        out["single_ms"] = time_ms(lambda: m2trans_apply(model, x, cfg, kern), n=5, warm=1)
+        out["device_ms"], out["copy_ms"] = device_ms(lambda: spatial_sharded_forward(
+            model, x, cfg, mesh=mesh, policy=kern), n=3, warm=1, copies=True)
+        out["single_device_ms"] = device_ms(lambda: m2trans_apply(model, x, cfg, kern),
+                                            n=3, warm=1)
+        x32 = seeded_frame(SHARD_F32_FRAME, 6).to(dev)
+        y32 = spatial_sharded_forward(model, x32, cfg, mesh=mesh, policy=ComputePolicy())
+        ref32 = m2trans_apply(model, x32, cfg, ComputePolicy())
+        out["f32_err"] = errs(y32, ref32)
+        out["f32_shape"] = tuple(y32.shape)
+
+    # 19. one DDP step of the flagship bf16 + kernels on the global batch
+    tcfg = cfg.replace(dtype="bfloat16", use_pallas=True)
+    model_t = init_m2trans(tcfg, seed=0, device=dev)
+    step = make_train_step(tcfg, model_t, make_optimizer(tcfg, model_t))  # DDP: n ranks
+    counters = fwd_counters + (cftm_branch_bwd, tail_band_bwd)
+    for f in counters:
+        f.launches = 0
+    aux = step(torch.from_numpy(lr_np).to(dev), torch.from_numpy(hr_np).to(dev))
+    torch.cuda.synchronize()
+    out["train_launches"] = [f.launches for f in counters]
+    out["loss"] = float(mesh_lib.all_reduce_sum(aux["loss"])) / n
+    flat = torch.cat([p.detach().reshape(-1) for p in model_t.parameters()])
+    out["replica_diff"] = float((flat - mesh_lib.broadcast(flat, 0)).abs().max())
+    if rank == 0:
+        out["grads"] = {k: p.grad.float().cpu().numpy() for k, p in model_t.named_parameters()
+                        if p.requires_grad}
+    out["loaded"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "m2trans_tpu"))
+    return out
+
+
+def parallel_phases(dev, model, cfg, lr_b, hr_b, grads_k, grads_p, grads_f, work):
+    """Phases 18 and 19: the sharded flagship forward at world size 1 under
+    NCCL in this process and on 2 ranks that share the card under gloo, the
+    infer CLI under torch.distributed.run with --mesh-space 2, the DDP train
+    step of 2 ranks against phase 10's one-process step, and the train CLI
+    with mesh_data 2. Returns the launches a rank for the kernels line."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import yaml
+    from PIL import Image
+
+    from m2trans_tpu_torch.models.m2trans import ComputePolicy, m2trans_apply
+    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
+    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch, cftm_branch_plain
+    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
+    from m2trans_tpu_torch.parallel.spatial import HALO_ROWS, spatial_sharded_forward
+    from m2trans_tpu_torch.train.convert import reference_state_dict
+
+    t0 = time.perf_counter()
+    kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
+    counters = (cftm_branch, ff_conv, tail_band_fused)
+    # K1 with the sharded CFTM's identity affine at the extended-shard
+    # heights of a 512-row frame: 2 ranks (256 + 2 x 96) and 4 (128 + 2 x 96)
+    parts = []
+    for rows in (512 // 2 + 2 * HALO_ROWS, 512 // 4 + 2 * HALO_ROWS):
+        for levels in (0, 1, 2):
+            args, _ = branch_case(levels, bsz=1, hw=512, seed=rows + levels)
+            xs = torch.rand(1, rows, 512, 64, device=dev).to(torch.bfloat16)[..., 16:32]
+            s = torch.full_like(args[4], 0.5 if levels else 1.0)
+            t = torch.zeros_like(args[5])
+            got = cftm_branch(xs, *args[1:4], s, t, levels=levels)
+            want = cftm_branch_plain(xs, *args[1:4], s, t, levels=levels)
+            mx, mean = errs(got, want)
+            need(mx < K1_TOL[0] and mean < K1_TOL[1],
+                 f"K1 at 1x{rows}x512x16 L={levels}: max {mx} mean {mean}")
+            parts.append(f"{rows} rows L{levels} max {mx:.3g} mean {mean:.3g}")
+
+    # (a) world size 1 under NCCL, in this process
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "s"), 1),
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            with torch.inference_mode():
+                x = seeded_frame(SHARD_FRAME, 5).to(dev)
+                single = m2trans_apply(model, x, cfg, kern)
+                for f in counters:
+                    f.launches = 0
+                y1 = spatial_sharded_forward(model, x, cfg, mesh=mesh_lib.space_mesh(),
+                                             policy=kern)
+                torch.cuda.synchronize()
+                launches1 = [f.launches for f in counters]
+                err1 = errs(y1, single)
+        finally:
+            dist.destroy_process_group()
+    need(launches1 == [32, 8, 1], f"sharded forward, NCCL world 1: launches {launches1}")
+    need(err1[0] < FWD_TOL[0] and err1[1] < FWD_TOL[1],
+         f"sharded forward, NCCL world 1, vs single-device: max/mean {err1}")
+    del single, y1
+    torch.cuda.empty_cache()
+
+    # (b), (c) and phase 19's step: 2 ranks sharing the card under gloo
+    ranks = mesh_lib.run_ranks(parallel_rank, 2, (lr_b.cpu().numpy(), hr_b.cpu().numpy()),
+                               timeout_s=400, group_timeout_s=300)
+    for r, res in enumerate(ranks):
+        need(res["loaded"] == [], f"rank {r} loaded {res['loaded']}")
+        need(res["backend"] == "gloo" and res["shared"], f"rank {r}: {res['backend']}")
+        need(res["launches"] == [32, 8, 1],
+             f"rank {r}: sharded forward launched {res['launches']}, want 32 K1, 8 K3, 1 K2")
+        need(res["finite"] and res["shape"] == (1, 2048, 2048, 3),
+             f"rank {r}: sharded output {res['shape']}, finite {res['finite']}")
+        need(res["err"][0] < FWD_TOL[0] and res["err"][1] < FWD_TOL[1],
+             f"rank {r}: sharded vs single-device bf16 max/mean {res['err']}")
+        need(res["f32_err"][0] <= SHARD_F32_ATOL and res["f32_shape"] == (1, 1024, 1024, 3),
+             f"rank {r}: f32 sharded vs single-device max {res['f32_err'][0]}")
+    print(f"phase 18 sharded flagship x4 forward, {SHARD_FRAME[0]}x{SHARD_FRAME[1]}x"
+          f"{SHARD_FRAME[2]} bf16 + kernels: world 1 under NCCL launches K1/K3/K2 "
+          f"{launches1}, vs single-device max {err1[0]:.3g} mean {err1[1]:.3g}; "
+          f"{ranks[0]['shared']}: launches a rank "
+          + " / ".join(str(r["launches"]) for r in ranks) + ", vs single-device max/mean "
+          + " / ".join(f"{r['err'][0]:.3g}/{r['err'][1]:.3g}" for r in ranks)
+          + f"; f32 (TF32 off) {SHARD_F32_FRAME[1]}x{SHARD_F32_FRAME[2]} max "
+          + " / ".join(f"{r['f32_err'][0]:.3g}" for r in ranks)
+          + "; a frame a rank, event ms sharded vs single-device "
+          + " / ".join(f"{r['ms']:.3f} vs {r['single_ms']:.3f}" for r in ranks)
+          + ", device ms " + " / ".join(f"{fmt_ms(r['device_ms'])} (memory copies "
+                                        f"{fmt_ms(r['copy_ms'])}) vs "
+                                        f"{fmt_ms(r['single_device_ms'])}" for r in ranks)
+          + "; K1 at the extended-shard shapes: " + "; ".join(parts))
+
+    # 19. the DDP step against phase 10's one-process step
+    grads = ranks[0]["grads"]
+    worst, worst_name, worst_e = 0.0, "", 0.0
+    for name, g in grads.items():
+        d = rel_l2(torch.from_numpy(g), grads_k[name].float().cpu())
+        e = rel_l2(grads_p[name], grads_f[name])
+        need(d <= max(STEP_TOL, 1.5 * e), f"DDP step: {name} vs one process rel L2 "
+             f"{d:.4g} > max({STEP_TOL}, 1.5 * {e:.4g})")
+        if d >= worst:
+            worst, worst_name, worst_e = d, name, e
+    for r, res in enumerate(ranks):
+        need(res["train_launches"] == [32, 8, 1, 32, 1],
+             f"rank {r}: DDP step launched {res['train_launches']}, want 32 + 8 + 1 "
+             "forward and 32 + 1 backward")
+        need(res["replica_diff"] == 0.0, f"rank {r}: parameters differ from rank 0's "
+             f"by {res['replica_diff']}")
+    print(f"phase 19 DDP x4 bf16 + kernels train step, 2 ranks x 1 (global batch 2x96x96 "
+          f"-> 384x384), {ranks[0]['shared']}: launches a rank "
+          + " / ".join(str(r["train_launches"]) for r in ranks)
+          + f"; loss {ranks[0]['loss']:.6f}; gradients vs phase 10's one-process step worst "
+          f"rel L2 {worst:.4g} ({worst_name}; bound {max(STEP_TOL, 1.5 * worst_e):.4g}); "
+          "parameters equal on both ranks after Adam")
+
+    # the CLIs under torch.distributed.run, both at once (each mostly waits
+    # for its ranks to start): infer on 2 ranks in f32, its PNGs within 1
+    # level of one device's; train with mesh_data 2 for 1 epoch of 2 steps
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        pt = os.path.join(tmp, "model_x4.pt")
+        torch.save({"model_state_dict": reference_state_dict(model, True)}, pt)
+        frames, out = os.path.join(tmp, "frames"), os.path.join(tmp, "out")
+        os.makedirs(frames)
+        rng = np.random.default_rng(1)
+        shapes = {"f0.png": (128, 128), "f1.png": (128, 128), "f2.png": (128, 128),
+                  "f3.png": (100, 76)}
+        for name, hw in shapes.items():
+            Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+                os.path.join(frames, name))
+        write_us1k_tree(os.path.join(tmp, "data"), np.random.default_rng(4), n=2)
+        with open(os.path.join(ROOT, "configs", "M2Trans_x4.yml")) as f:
+            ycfg = yaml.safe_load(f)
+        ycfg.update(dtype="bfloat16", use_pallas=True, data_path=os.path.join(tmp, "data"),
+                    train_range=[1, 3], data_repeat=2, epochs=1, log_every=1, batch_size=2,
+                    eval_sets=["CCA-US"], log_path=os.path.join(tmp, "exp"), threads=2,
+                    mesh_data=2)
+        yml = os.path.join(tmp, "train.yml")
+        with open(yml, "w") as f:
+            yaml.dump(ycfg, f)
+        run2 = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2", "-m"]
+        cmds = {"infer": run2 + ["m2trans_tpu_torch.infer", "--config", CONFIG,
+                                 "--model_path", pt, "--input", frames, "--output", out,
+                                 "--mesh-space", "2", "--f32"],
+                "train": run2 + ["m2trans_tpu_torch.train", "--config", yml]}
+        t1 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
+                 for k, c in cmds.items()}
+        try:
+            res = {k: p.communicate(timeout=300) for k, p in procs.items()}
+        finally:  # a launcher cut by the timeout takes its ranks with it
+            for p in procs.values():
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+        cli_s = time.perf_counter() - t1
+        for k, p in procs.items():
+            need(p.returncode == 0, f"{k} CLI under torch.distributed.run exited "
+                 f"{p.returncode}:\n{res[k][1][-3000:]}")
+
+        report = json.loads([ln for ln in res["infer"][0].splitlines()
+                             if ln.startswith("{")][-1])
+        need(report["mesh_space"] == 2 and report["ranks"] == 2 and report["frames"] == 4,
+             f"infer report {report}")
+        worst_level = 0
+        with torch.inference_mode():
+            for name, hw in shapes.items():
+                with Image.open(os.path.join(frames, name)) as img:
+                    x = torch.from_numpy(np.asarray(img.convert("RGB"), np.float32)[None]
+                                         / 255.0).to(dev)
+                want = np.clip(m2trans_apply(model, x, cfg, ComputePolicy())[0].cpu().numpy()
+                               * 255.0 + 0.5, 0, 255).astype(np.int32)
+                with Image.open(os.path.join(out, name)) as img:
+                    got = np.asarray(img, np.int32)
+                need(got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}")
+                worst_level = max(worst_level, int(np.abs(got - want).max()))
+        need(worst_level <= 1,
+             f"infer --mesh-space 2 PNGs differ from one device's by {worst_level} levels")
+
+        train_out = res["train"][0]
+        need("## parameters equal on all 2 ranks ##" in train_out
+             and train_out.count("## device:") == 1,
+             f"train CLI mesh_data 2 output:\n{train_out[-2000:]}")
+        exps = os.listdir(os.path.join(tmp, "exp"))
+        need(len(exps) == 1, f"experiment dirs {exps}")
+        exp = os.path.join(tmp, "exp", exps[0])
+        models = sorted(os.listdir(os.path.join(exp, "models")))
+        need(models == ["model_x4_1.pt"], f"checkpoints {models}")
+        with open(os.path.join(exp, "log.txt")) as f:
+            log = f.read()
+        need(log.count("Epoch:1, ") == 2 and "[CCA-US-X4], PSNR/SSIM: " in log,
+             "train CLI mesh_data 2: log.txt lacks the loss or PSNR lines")
+        ranks_line = [ln for ln in train_out.splitlines() if ln.startswith("## 2 ranks")]
+    print(f"phase 18 infer CLI under torch.distributed.run, 2 ranks, --mesh-space 2 --f32, "
+          f"4 frames (3x 128x128, 1x 100x76): PNGs within {worst_level} level(s) of the "
+          f"single-device f32 forward; report {json.dumps(report)}")
+    print(f"phase 19 train CLI under torch.distributed.run, mesh_data 2, x4 bf16, 1 epoch "
+          f"of 2 steps + validation: rank 0 alone wrote the tree ({models[0]}, log.txt), "
+          f"{ranks_line[0] if ranks_line else ''}, parameters equal on both ranks; the two "
+          f"CLIs side by side in {cli_s:.1f} s; phases 18-19 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"sharded_forward": ranks[0]["launches"], "ddp_step": ranks[0]["train_launches"],
+            "sharded_ms": [r["ms"] for r in ranks],
+            "sharded_device_ms": [r["device_ms"] for r in ranks]}
 
 
 def run() -> dict:
@@ -1300,6 +1601,9 @@ def run() -> dict:
     # 17. the recipe's step with the MedCLIP semantic loss
     semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work)
 
+    # 18, 19. the sharded forward and data parallelism (two ranks on the card)
+    par = parallel_phases(dev, model, cfg, lr_b, hr_b, grads_k, grads_p, grads_f, work)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -1322,12 +1626,16 @@ def run() -> dict:
          "bound_ms_by_level": {i: k1_bound[i]["bound_ms"] for i in range(3)},
          "bound_by_by_level": {i: k1_bound[i]["bound_by"] for i in range(3)},
          "device_ms_1x512x512_by_level": k1_frame_dev,
-         "resident_by_level": dict(enumerate(resident))},
+         "resident_by_level": dict(enumerate(resident)),
+         "launches_sharded_forward_per_rank": par["sharded_forward"][0],
+         "launches_ddp_step_per_rank": par["ddp_step"][0]},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
          "launches": launches["tail_band"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None,
-         "device_ms": k2_dev, "device_ms_1x512x512": k2_frame_dev},
+         "device_ms": k2_dev, "device_ms_1x512x512": k2_frame_dev,
+         "launches_sharded_forward_per_rank": par["sharded_forward"][2],
+         "launches_ddp_step_per_rank": par["ddp_step"][2]},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
          "replaces": pallas + "halo_attn.py:1053",
@@ -1336,7 +1644,8 @@ def run() -> dict:
          **cftm_bound(k1b_bound), "library_ms": None,
          "device_ms": None if None in k1b_dev.values() else per_cftm(k1b_dev),
          "device_ms_by_level": k1b_dev, "variant_by_level": k1b_variant,
-         "bound_ms_by_level": {i: k1b_bound[i]["bound_ms"] for i in range(3)}},
+         "bound_ms_by_level": {i: k1b_bound[i]["bound_ms"] for i in range(3)},
+         "launches_ddp_step_per_rank": par["ddp_step"][3]},
         {"name": "tail_band_bwd", "route": "cuda", "source": csrc + "tail_band_bwd.cu",
          "replaces": pallas + "tail_band.py:438",
          "launches": train_launches["tail_band_bwd"], "max_abs_err": k2b_err,
@@ -1345,12 +1654,15 @@ def run() -> dict:
          "device_ms_by_level": {"x4": k2b_dev, "x2": k2b_small_dev[2],
                                 "x3": k2b_small_dev[3]},
          "variant_by_level": {f"x{sc}": f"{sc * sc} roles, one a phase block"
-                              for sc in (2, 3, 4)}},
+                              for sc in (2, 3, 4)},
+         "launches_ddp_step_per_rank": par["ddp_step"][4]},
         {"name": "ff_conv", "route": "cuda", "source": csrc + "ff_conv.cu",
          "replaces": pallas + "ff_pair.py:60",
          "launches": launches["ff_conv"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound, "library_ms": k3_lib_ms,
-         "device_ms": k3_dev[0], "library_device_ms": k3_dev[2]},
+         "device_ms": k3_dev[0], "library_device_ms": k3_dev[2],
+         "launches_sharded_forward_per_rank": par["sharded_forward"][1],
+         "launches_ddp_step_per_rank": par["ddp_step"][1]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",
          "launches": k1n_launches, "max_abs_err": k1n_err,

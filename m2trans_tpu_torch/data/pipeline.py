@@ -8,6 +8,11 @@ datas/utils.py:7-53). The loader is the JAX package's threaded numpy
 loader with the same per-batch numpy RNG, so its batches equal the JAX
 loader's. The JAX package's C++ loader (m2trans_tpu/runtime) is not ported
 yet: ``native_loader`` is not read here.
+
+Data parallelism: every rank's loader yields the same global batch (one
+seed, the batch-index-derived RNG); each rank keeps the rows
+:func:`rank_rows` gives it, after the augmentations (which draw on the
+global batch).
 """
 
 from __future__ import annotations
@@ -27,6 +32,18 @@ EVAL_SET_DIRS = {
     "US-CASE": "benchmark/US15",
     "US1K_23": "benchmark/US1K_23",
 }
+
+
+def rank_rows(batch: int, rank: int, ranks: int) -> slice:
+    """The rows of a global batch of ``batch`` that ``rank`` of ``ranks``
+    keeps; the batch must divide evenly (JAX ``Trainer._put_batch``)."""
+    if batch % ranks:
+        raise ValueError(
+            f"global batch {batch} must divide evenly over {ranks} ranks — "
+            f"integer truncation would silently drop trailing samples (set "
+            f"batch_size to a multiple of {ranks})")
+    per = batch // ranks
+    return slice(rank * per, (rank + 1) * per)
 
 
 class TrainLoader:

@@ -7,11 +7,20 @@ latency, the device, and the launches of the port's kernels.
 Usage:
   python -m m2trans_tpu_torch.infer --config configs/M2Trans_x4_test.yml \
       --model_path model_x4.pt --input frames_dir/ --output sr_out/ \
-      [--f32] [--u8] [--depth N] [--device cuda|cpu]
+      [--f32] [--u8] [--depth N] [--mesh-space N|0] [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is
 present; the CPU runs only when asked for (``--device cpu``), with the
 kernels' plain versions.
+
+Spatial sharding: ``--mesh-space N`` > 1 shards every frame's rows over N
+ranks, launched as ``python -m torch.distributed.run --nproc_per_node N -m
+m2trans_tpu_torch.infer ... --mesh-space N`` (each rank on
+``cuda:LOCAL_RANK``; ranks that share a card use gloo). ``--mesh-space 0``
+(the default) shards bf16 frames of 512x512 pixels or more over as many of
+the ranks as divide every frame's padded height (none with one rank); a
+rank left out runs each frame on its own. Rank 0 writes the PNGs and the
+report.
 """
 
 from __future__ import annotations
@@ -30,9 +39,10 @@ def main(argv=None) -> None:
                     help="image file or directory of frames")
     ap.add_argument("--output", type=str, default=None)
     ap.add_argument("--mesh-space", type=int, default=0,
-                    help="spatial shards over the frame height; 0 (auto) "
-                         "and 1 both mean one device today, other values "
-                         "raise (spatial sharding is not ported yet)")
+                    help="ranks that shard each frame's height; 0 = auto "
+                         "(shard large bf16 frames over the ranks there "
+                         "are), 1 = one device; N must equal the number "
+                         "of ranks launched")
     ap.add_argument("--depth", type=int, default=2,
                     help="frames in flight in the stream (1: each frame is "
                          "waited for before the next is enqueued)")
@@ -45,11 +55,6 @@ def main(argv=None) -> None:
                     help="cuda (default; fails without a CUDA device) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh_space not in (0, 1):
-        raise NotImplementedError(
-            f"--mesh-space {args.mesh_space}: spatial sharding is not yet "
-            "ported to the torch package")
-
     import numpy as np
     import torch
     from PIL import Image
@@ -59,13 +64,17 @@ def main(argv=None) -> None:
     from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
     from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
     from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
+    from m2trans_tpu_torch.parallel.spatial import auto_space_mesh_multi
     from m2trans_tpu_torch.parallel.streaming import StreamingSR
     from m2trans_tpu_torch.train.checkpoint import load_params_any
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
+    device = mesh_lib.init_from_env(args.device)
+    rank, n_ranks = mesh_lib.world()
+    if args.mesh_space > 0 and args.mesh_space != n_ranks:
+        raise ValueError(
+            f"--mesh-space {args.mesh_space} needs {args.mesh_space} ranks, "
+            f"this run has {n_ranks}: {mesh_lib.launch_hint(args.mesh_space)}")
 
     cfg = load_config(args.config, overrides={"model_path": args.model_path})
     model = load_params_any(cfg.model_path, cfg, device=device)
@@ -81,10 +90,22 @@ def main(argv=None) -> None:
     if not frames:
         raise SystemExit("no input frames found")
 
-    runner = StreamingSR(model, cfg, policy=policy, output_u8=args.u8,
+    mesh = None
+    if args.mesh_space > 1:
+        mesh = mesh_lib.space_mesh(args.mesh_space)
+    elif args.mesh_space == 0:
+        # every distinct frame shape, so the count divides all padded heights
+        shapes = sorted({(f.shape[1], f.shape[2]) for f in frames})
+        mesh = auto_space_mesh_multi(shapes, cfg,
+                                     policy or StreamingSR.default_policy())
+        if mesh is not None and rank == 0:
+            print(f"## auto spatial sharding: {mesh.n} shards over H for "
+                  f"{len(shapes)} frame shape(s) ##")
+    writer = rank == 0
+    runner = StreamingSR(model, cfg, mesh=mesh, policy=policy, output_u8=args.u8,
                          depth=args.depth)
     runner.warmup(frames[0].shape)
-    if args.output:
+    if args.output and writer:
         os.makedirs(args.output, exist_ok=True)
 
     counted = {"cftm_branch": cftm_branch, "ff_conv": ff_conv,
@@ -94,7 +115,7 @@ def main(argv=None) -> None:
     n_px = 0
     for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
         n_px += sr.shape[1] * sr.shape[2]
-        if args.output:
+        if args.output and writer:
             u8 = (sr[0] if args.u8 else
                   np.clip(sr[0] * 255.0 + 0.5, 0, 255).astype(np.uint8))
             Image.fromarray(u8).save(os.path.join(args.output, os.path.basename(path)))
@@ -111,8 +132,14 @@ def main(argv=None) -> None:
                    else "cpu"),
         "kernel_launches": {k: f.launches - launches0[k]
                             for k, f in counted.items()},
+        "mesh_space": mesh.n if mesh is not None else 1,
+        "ranks": n_ranks,
+        "backend": mesh_lib.backend(),
     }
-    print(json.dumps(report))
+    if writer:
+        print(json.dumps(report))
+    if n_ranks > 1:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

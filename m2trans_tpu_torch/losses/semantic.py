@@ -184,6 +184,15 @@ class SemanticLossFn:
                for k, v in captions.items()}
         return tok["input_ids"], tok["attention_mask"], tok.get("token_type_ids")
 
+    def draw_offsets(self, rng: np.random.Generator, bsz: int, h: int, w: int
+                     ) -> Offsets:
+        """The crop origins of a batch of ``bsz`` HR images of h x w: drawn
+        from ``rng``, or zeros where the image is too small to crop."""
+        n_crops = max(self.n_patches - 1, 0)
+        if min(h, w) <= self.clip_size:  # the small-image fallback
+            return (np.zeros((n_crops, bsz), np.int64),) * 2
+        return crop_offsets(rng, bsz, h, w, n_crops, self.clip_size)
+
     def const_stage_from_params(self, model: MedCLIP, hr: torch.Tensor,
                                 captions: Optional[Dict[str, Any]], *,
                                 offsets: Optional[Offsets] = None,
@@ -194,14 +203,8 @@ class SemanticLossFn:
         ``torch.no_grad()``."""
         if captions is None:
             return None
-        bsz, h, w = hr.shape[0], hr.shape[1], hr.shape[2]
-        n_crops = max(self.n_patches - 1, 0)
         if offsets is None:
-            if min(h, w) <= self.clip_size:  # the small-image fallback
-                offsets = (np.zeros((n_crops, bsz), np.int64),) * 2
-            else:
-                offsets = crop_offsets(rng or np.random.default_rng(0), bsz, h, w,
-                                       n_crops, self.clip_size)
+            offsets = self.draw_offsets(rng or np.random.default_rng(0), *hr.shape[:3])
         ids, mask, tti = self._tokens(captions, hr.device)
         t = clip_text_embed(model, ids, mask, faithful=self.faithful, token_type_ids=tti)
         sim_y = clip_image_sims(model, hr, offsets, t, n_patches=self.n_patches,

@@ -287,8 +287,9 @@ def make_branch_fn(blk: CFTM, policy: ComputePolicy, *, block: int = 8,
                    halo: int = 1):
     """Returns branch(name, z, levels) computing one CFTM wavelet branch,
     DWT^levels -> halo attention -> IWT^levels: one K1n launch in bf16 with
-    kernels, plain torch otherwise. Shared by the f32 forward and (in the
-    JAX package) the spatially sharded forward."""
+    kernels, plain torch otherwise. The f32 forward and the f32 spatially
+    sharded forward use it; no bf16 model path reaches K1n (the bf16 forwards,
+    sharded or not, run their branches through K1)."""
 
     def branch(name, z, levels):
         tb = getattr(blk, name)
@@ -352,6 +353,30 @@ def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
                       block=block, halo=halo)
         outs.append(prev)
     return ff(torch.cat(outs, dim=-1), x, *_ff_wb(blk, policy.dtype))
+
+
+def branch_identity(blk: CFTM, name: str, z: torch.Tensor, levels: int, *,
+                    s: float, policy: ComputePolicy, block: int = 8,
+                    halo: int = 1) -> torch.Tensor:
+    """One bf16 CFTM branch with the identity affine, ``B(z*s) + z*s``: one
+    K1 call with s, t = 0 and no cascade input (its plain version without
+    kernels). The spatially sharded forward normalizes outside K1."""
+    tb = getattr(blk, name)
+    branch = cftm_branch if policy.use_kernels else cftm_branch_plain
+    bsz, cb = z.shape[0], z.shape[-1]
+    st = torch.zeros((2, bsz, cb), dtype=torch.float32, device=z.device)
+    st[0] = s
+    rel_h, rel_w = _rel(tb)
+    return branch(z.to(policy.dtype), _qkv_w(tb, policy.dtype), rel_h, rel_w,
+                  st[0], st[1], levels=levels, block=block, halo=halo)
+
+
+def ff_residual(blk: CFTM, oc: torch.Tensor, x: torch.Tensor,
+                policy: ComputePolicy) -> torch.Tensor:
+    """bf16 feed-forward conv of ``oc`` (zero padded), its bias and the
+    residual ``+ x``: one K3 call (its plain version without kernels)."""
+    ff = ff_conv if policy.use_kernels else ff_conv_plain
+    return ff(oc, x.to(policy.dtype), *_ff_wb(blk, policy.dtype))
 
 
 _PS_PERM = {}  # (channels, r, device) -> the permutation on that device

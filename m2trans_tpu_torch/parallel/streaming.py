@@ -1,10 +1,17 @@
 """Streaming cine-loop super-resolution; port of
-m2trans_tpu/parallel/streaming.py for one device.
+m2trans_tpu/parallel/streaming.py.
 
 Frames go through :func:`m2trans_apply_microbatched` on the model's
-device. :meth:`StreamingSR.stream` keeps ``depth`` frames in flight. On a
-CUDA model each in-flight slot owns a pinned host input buffer and a pinned
-host output buffer (allocated per frame shape, reused): the frame goes up
+device or, with a ``mesh``, through
+:func:`~m2trans_tpu_torch.parallel.spatial.spatial_sharded_forward` over
+its ranks: every rank of the mesh runs the same stream and takes part in
+every frame, and each gets the whole SR frame. A rank outside the mesh
+(``mesh.rank`` -1: the world has more ranks than the mesh uses) runs the
+single-device forward, as ``train/evaluate.py::make_forward_fn`` does.
+
+:meth:`StreamingSR.stream` keeps ``depth`` frames in flight. On a CUDA
+model each in-flight slot owns a pinned host input buffer and a pinned host
+output buffer (allocated per frame shape, reused): the frame goes up
 with a non-blocking copy, its forward is enqueued, the copy back into the
 slot's pinned buffer is enqueued non-blocking right after it and a CUDA event
 is recorded. Taking a result waits on that frame's own event only, so the
@@ -14,8 +21,7 @@ enqueue to its result lying in the pinned buffer, read off its event's
 device timestamp (against an event recorded at the start of the stream), so
 it does not grow by what the consumer does before it asks for the frame. On
 a CPU model nothing is pinned and no event is used (the latency ends when
-the frame is handed out); frames and their order are the same. Spatial sharding over a
-mesh is not ported yet.
+the frame is handed out); frames and their order are the same.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from m2trans_tpu_torch.models.m2trans import (
     M2Trans,
     m2trans_apply_microbatched,
 )
+from m2trans_tpu_torch.parallel.mesh import SpaceMesh
+from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
 
 
 class StreamingSR:
@@ -41,7 +49,9 @@ class StreamingSR:
     Args:
       model: the port's M2Trans, already on its device.
       cfg: model Config.
-      mesh: must be None (spatial sharding is not ported yet).
+      mesh: optional :class:`~m2trans_tpu_torch.parallel.mesh.SpaceMesh`
+        whose ranks shard every frame by rows (a rank outside it runs the
+        single-device forward).
       policy: numerics policy; defaults to bf16 with the kernels.
       depth: frames in flight.
       output_u8: quantize SR frames to uint8 (round(x*255)) on the device
@@ -55,10 +65,11 @@ class StreamingSR:
     def __init__(self, model: M2Trans, cfg: Config, *, mesh=None,
                  policy: Optional[ComputePolicy] = None, depth: int = 2,
                  output_u8: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingSR: spatial sharding over a mesh is not ported yet")
+        if mesh is not None and not isinstance(mesh, SpaceMesh):
+            raise TypeError(f"StreamingSR: mesh must be a SpaceMesh "
+                            f"(parallel.mesh.space_mesh), got {type(mesh).__name__}")
         self.model = model
+        self.mesh = mesh
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.policy = policy or self.default_policy()
@@ -69,7 +80,11 @@ class StreamingSR:
 
     @torch.inference_mode()
     def _fwd(self, x: torch.Tensor) -> torch.Tensor:
-        y = m2trans_apply_microbatched(self.model, x, self.cfg, self.policy)
+        if self.mesh is not None and self.mesh.rank >= 0:
+            y = spatial_sharded_forward(self.model, x, self.cfg, mesh=self.mesh,
+                                        policy=self.policy)
+        else:
+            y = m2trans_apply_microbatched(self.model, x, self.cfg, self.policy)
         if self.output_u8:
             return torch.round(y.float() * 255.0).to(torch.uint8)
         return y.float()

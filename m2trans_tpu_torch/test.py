@@ -13,6 +13,10 @@ through the CUDA kernels (it sets ``use_pallas``; a config that sets
 ``dtype: bfloat16`` itself chooses with its own ``use_pallas``).
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is present;
 the CPU runs only when asked for, with the kernels' plain versions.
+
+Under ``python -m torch.distributed.run --nproc_per_node N`` every rank
+evaluates and bf16 frames of 512x512 pixels or more are sharded by rows
+over the N ranks; rank 0 prints the metrics and saves the images.
 """
 
 from __future__ import annotations
@@ -45,13 +49,12 @@ def main(argv=None) -> None:
 
     from m2trans_tpu_torch.config import load_config
     from m2trans_tpu_torch.data.pipeline import create_datasets
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.train.checkpoint import load_params_any
     from m2trans_tpu_torch.train.evaluate import evaluate_all
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to evaluate on the CPU)")
+    device = mesh_lib.init_from_env(args.device)
+    rank, n_ranks = mesh_lib.world()
     cfg = load_config(args.config, overrides={
         "model_path": args.model_path, "dtype": args.dtype,
         "use_pallas": True if args.dtype == "bfloat16" else None})
@@ -61,9 +64,11 @@ def main(argv=None) -> None:
     results = evaluate_all(model, cfg, eval_sets,
                            full_metrics=args.full_metrics,
                            save_root=("test_results" if args.save_image
-                                      else None),
+                                      and rank == 0 else None),
                            bucket=args.bucket)
-    for name, m in results.items():
+    if n_ranks > 1:
+        torch.distributed.destroy_process_group()
+    for name, m in results.items() if rank == 0 else ():
         print(f"[{name}-X{cfg.scale}] "
               f"PSNR:{m['psnr']:.2f},SSIM:{m['ssim']:.4f}" +
               (f"\nFSIM:{m['fsim']:.4f},GMSD:{m['gmsd']:.4f}"

@@ -12,6 +12,10 @@ kernels' plain versions. With ``lambda_clip > 0`` and ``medclip_path`` (a
 directory with the released MedCLIP ``pytorch_model.bin`` and its
 tokenizer files) the step adds the MedCLIP semantic loss on the captions of
 ``captions_path``; building the tokenizer needs ``transformers``.
+
+Data parallelism: ``mesh_data: N`` in the config and ``python -m
+torch.distributed.run --nproc_per_node N -m m2trans_tpu_torch.train ...``
+(each rank on ``cuda:LOCAL_RANK``; ranks that share a card use gloo).
 """
 
 from __future__ import annotations
@@ -32,36 +36,41 @@ def main(argv=None) -> None:
 
     from m2trans_tpu_torch.config import load_config
     from m2trans_tpu_torch.models.m2trans import param_count
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.train.loop import Trainer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to train on the CPU)")
+    device = mesh_lib.init_from_env(args.device)
+    rank, n_ranks = mesh_lib.world()
     cfg = load_config(args.config, overrides={"resume": args.resume})
-    print(f"## device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'} ##")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"## device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'} ##")
+    if n_ranks > 1:
+        say(f"## {n_ranks} ranks, {mesh_lib.backend()} "
+            f"{mesh_lib.shared_card_note()} ##")
     if cfg.dtype == "float32":
-        print("## dtype float32 runs parity numerics (TF32 off); dtype: "
-              "bfloat16 with use_pallas: true runs the CUDA kernels ##")
+        say("## dtype float32 runs parity numerics (TF32 off); dtype: "
+            "bfloat16 with use_pallas: true runs the CUDA kernels ##")
     semantic_loss_fn = None
     if cfg.lambda_clip > 0 and cfg.medclip_path:
         from m2trans_tpu_torch.losses.semantic import make_semantic_loss
 
         semantic_loss_fn = make_semantic_loss(cfg, device)
     elif cfg.lambda_clip > 0:
-        print("## lambda_clip > 0 but no medclip_path set: training with "
-              "L1 only (set medclip_path to pretrained MedCLIP weights) ##")
+        say("## lambda_clip > 0 but no medclip_path set: training with "
+            "L1 only (set medclip_path to pretrained MedCLIP weights) ##")
 
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
         SummaryWriter = None
     trainer = Trainer(cfg, device=device, semantic_loss_fn=semantic_loss_fn)
-    if SummaryWriter is not None:
+    if SummaryWriter is not None and rank == 0:
         trainer.writer = SummaryWriter(logdir=trainer.experiment_path)
-    print(f"## params: {param_count(trainer.model)} "
-          f"({param_count(trainer.model, trainable_only=True)} trainable) ##")
+    say(f"## params: {param_count(trainer.model)} "
+        f"({param_count(trainer.model, trainable_only=True)} trainable) ##")
     trainer.run()
+    if n_ranks > 1:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

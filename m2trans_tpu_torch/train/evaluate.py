@@ -10,9 +10,13 @@ device in f32. Both of the reference's recipes:
 By default frames are padded only by the model's own pad-to-32 rule, so the
 metrics compare with the reference's; ``bucket`` pads further.
 
+With more than one rank (``python -m torch.distributed.run``) every rank
+runs the same evaluation and bf16 frames of 512x512 pixels or more are
+sharded by rows over the ranks (:func:`make_forward_fn`, JAX
+``make_forward_fn(auto_space=True)``); f32 parity stays single-device.
+
 Not ported yet: the TensorBoard comparison panels (they need
-``ops/resize.py``) and the automatic spatial sharding of large frames
-(one device).
+``ops/resize.py``).
 """
 
 from __future__ import annotations
@@ -33,23 +37,46 @@ from m2trans_tpu_torch.models.m2trans import (
     m2trans_apply,
     policy_from_config,
 )
+from m2trans_tpu_torch.parallel import spatial
+
+
+def make_forward_fn(model: M2Trans, cfg: Config,
+                    policy: Optional[ComputePolicy] = None,
+                    auto_space: bool = True):
+    """A forward ``lr -> sr``. With ``auto_space`` a frame that
+    :func:`~m2trans_tpu_torch.parallel.spatial.auto_space_mesh` picks a mesh
+    for (bf16, more than one rank, a large frame) goes through the sharded
+    forward over the ranks, which must all call it with the same frame; a
+    rank outside that mesh runs the single-device forward."""
+    policy = policy or policy_from_config(cfg)
+
+    def fwd(lr: torch.Tensor) -> torch.Tensor:
+        mesh = (spatial.auto_space_mesh(lr.shape[1], lr.shape[2], cfg, policy)
+                if auto_space else None)
+        if mesh is None or mesh.rank < 0:
+            return m2trans_apply(model, lr, cfg, policy)
+        return spatial.spatial_sharded_forward(model, lr, cfg, mesh=mesh,
+                                               policy=policy)
+
+    return fwd
 
 
 def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
                      policy: Optional[ComputePolicy] = None,
                      full_metrics: bool = False,
                      save_dir: Optional[str] = None,
-                     bucket: int = 0) -> Dict[str, float]:
+                     bucket: int = 0,
+                     auto_space: bool = True) -> Dict[str, float]:
     """PSNR/SSIM (and with ``full_metrics`` FSIM/GMSD) averaged over a
     benchmark set, with the reference's rounding biases, on the model's
-    device.
+    device. ``auto_space``: see :func:`make_forward_fn`.
 
     ``bucket > 0`` reflect-pads every LR frame up to a multiple of
     ``bucket`` before the forward and crops the SR back, so frames of many
     sizes share a few shapes. APPROXIMATE: the extra padding context
     perturbs border pixels slightly; the default (0) evaluates exactly
     like the reference."""
-    policy = policy or policy_from_config(cfg)
+    fwd = make_forward_fn(model, cfg, policy, auto_space)
     dev = next(model.parameters()).device
     sums = {"psnr": 0.0, "ssim": 0.0, "fsim": 0.0, "gmsd": 0.0}
     n = 0
@@ -58,10 +85,10 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
             lr_t = torch.from_numpy(lr).to(dev)
             if bucket > 0:
                 h0, w0 = lr_t.shape[1], lr_t.shape[2]
-                sr = m2trans_apply(model, pad_to_multiple(lr_t, bucket), cfg,
-                                   policy)[:, : h0 * cfg.scale, : w0 * cfg.scale]
+                sr = fwd(pad_to_multiple(lr_t, bucket))[:, : h0 * cfg.scale,
+                                                         : w0 * cfg.scale]
             else:
-                sr = m2trans_apply(model, lr_t, cfg, policy)
+                sr = fwd(lr_t)
             hr_t = torch.from_numpy(hr).to(dev)
             if sr.shape != hr_t.shape:
                 raise ValueError(f"{name}: SR {tuple(sr.shape)} != HR "
@@ -94,11 +121,13 @@ def evaluate_all(model: M2Trans, cfg: Config, eval_sets: List[Dict], *,
                  policy: Optional[ComputePolicy] = None,
                  full_metrics: bool = False,
                  save_root: Optional[str] = None,
-                 bucket: int = 0) -> Dict[str, Dict[str, float]]:
+                 bucket: int = 0,
+                 auto_space: bool = True) -> Dict[str, Dict[str, float]]:
     results = {}
     for item in eval_sets:
         save_dir = os.path.join(save_root, item["name"]) if save_root else None
         results[item["name"]] = evaluate_dataset(
             model, cfg, item["dataset"], policy=policy,
-            full_metrics=full_metrics, save_dir=save_dir, bucket=bucket)
+            full_metrics=full_metrics, save_dir=save_dir, bucket=bucket,
+            auto_space=auto_space)
     return results

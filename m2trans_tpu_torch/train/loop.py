@@ -17,8 +17,19 @@ differentiated, one backward, Adam. Every random draw (augmentation boxes,
 crop offsets) comes from one host numpy ``Generator``, seeded from
 ``cfg.seed`` by the Trainer, so a step copies nothing from the device.
 
+Data parallelism (``mesh_data`` > 1, the JAX ``data`` mesh axis): one rank
+a replica, launched by ``python -m torch.distributed.run --nproc_per_node
+<mesh_data>``, the model wrapped in ``DistributedDataParallel``. Every rank
+loads the same global batch, augments it with the same draws and keeps its
+own rows, so N ranks take the step one process takes on the global batch.
+Every rank validates, as every JAX process does (bf16 frames of 512x512
+pixels or more sharded over the ranks), so no rank waits in a collective
+while another validates; rank 0 alone prints and writes the experiment
+tree, the TensorBoard scalars and the checkpoints; ``--resume`` loads on
+every rank.
+
 Not ported yet, and raising ``NotImplementedError`` rather than skipped:
-data parallelism (``mesh_data > 1``) and profiler traces (``profile_dir``).
+profiler traces (``profile_dir``).
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.augment import (
@@ -39,7 +51,7 @@ from m2trans_tpu_torch.data.augment import (
     gaussian_noise,
     noise_draw,
 )
-from m2trans_tpu_torch.data.pipeline import create_datasets
+from m2trans_tpu_torch.data.pipeline import create_datasets, rank_rows
 from m2trans_tpu_torch.losses.pixel import l1_loss
 from m2trans_tpu_torch.models.m2trans import (
     M2Trans,
@@ -47,6 +59,7 @@ from m2trans_tpu_torch.models.m2trans import (
     m2trans_apply,
     policy_from_config,
 )
+from m2trans_tpu_torch.parallel import mesh as mesh_lib
 from m2trans_tpu_torch.train import checkpoint as ckpt_lib
 from m2trans_tpu_torch.train.evaluate import evaluate_all
 from m2trans_tpu_torch.train.schedule import cosine_annealing_lr
@@ -60,12 +73,9 @@ from m2trans_tpu_torch.utils.experiment import (
 def check_ported(cfg: Config) -> None:
     """Raise on the options of the JAX training loop that the port does
     not have yet."""
-    missing = [name for name, on in (
-        ("mesh_data > 1 (data parallelism)", cfg.mesh_data > 1),
-        ("profile_dir", cfg.profile_dir)) if on]
-    if missing:
+    if cfg.profile_dir:
         raise NotImplementedError(
-            f"{', '.join(missing)}: not yet ported to the torch package")
+            "profile_dir: not yet ported to the torch package")
 
 
 def make_optimizer(cfg: Config, model: M2Trans) -> torch.optim.Adam:
@@ -98,11 +108,32 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
     host generator of the step's draws (by default one of the step's own,
     seeded from ``cfg.seed``); ``captions`` the tokenized captions, without
     which the semantic loss is 0. Returns the loss tensors (not
-    synchronised)."""
+    synchronised).
+
+    Data parallelism (a default group of more than one rank): the step
+    takes the global batch (and its captions), augments it and draws the
+    crop offsets as one process would, then keeps this rank's rows; the
+    forward runs through ``DistributedDataParallel(model)``, whose backward
+    averages the gradients over the ranks. The rank's loss is scaled so that
+    its mean over the ranks is the global batch's (L1 a mean over the batch,
+    the semantic loss a sum), and so are the returned losses."""
     policy = policy_from_config(cfg)
     cutout_len = int(0.1 * cfg.patch_size // cfg.scale)
     own_rng = np.random.default_rng(cfg.seed)
     clip_on = semantic_loss_fn is not None and cfg.lambda_clip > 0
+    rank, ranks = mesh_lib.world()
+    if ranks > 1:
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(model.parameters()).device
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None)
+
+        def forward(x):  # M2Trans.forward: the policy of model.cfg
+            return ddp(x)
+    else:
+        def forward(x):
+            return m2trans_apply(model, x, cfg, policy)
 
     def train_step(lr_img: torch.Tensor, hr_img: torch.Tensor,
                    sample_mask: Optional[torch.Tensor] = None, *,
@@ -111,6 +142,7 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
                    do_cutout: bool = False) -> Dict[str, torch.Tensor]:
         rng = own_rng if rng is None else rng
         b, lh, lw = lr_img.shape[:3]
+        rows = rank_rows(b, rank, ranks)
         if cfg.cutmix:
             lr_img, hr_img = cutmix_apply(lr_img, hr_img, cutmix_draw(rng, b, lh, lw),
                                           cfg.scale)
@@ -121,23 +153,31 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
             if noise is not None:
                 lr_img = gaussian_noise(lr_img, *noise)
 
+        offsets = None
+        if clip_on and captions is not None:  # drawn for the global batch
+            offsets = semantic_loss_fn.draw_offsets(rng, b, *hr_img.shape[1:3])
+            offsets = tuple(o[:, rows] for o in offsets)
+            captions = {k: np.asarray(v)[rows] for k, v in captions.items()}
+        lr_img, hr_img = lr_img[rows], hr_img[rows]
+
         # the semantic loss's constant stage carries no d/d(sr): no graph
         # (no_grad, not inference_mode: its tensors enter the loss below)
         clip_const = None
-        if clip_on and captions is not None:
+        if offsets is not None:
             with torch.no_grad():
                 clip_const = semantic_loss_fn.const_stage_from_params(
-                    semantic_loss_fn.model, hr_img, captions, rng=rng)
+                    semantic_loss_fn.model, hr_img, captions, offsets=offsets)
 
-        sr = m2trans_apply(model, lr_img, cfg, policy)
+        sr = forward(lr_img)
         if sample_mask is None:
             l1 = l1_loss(sr, hr_img) * cfg.lambda_l1
         else:
             per = (sr.float() - hr_img.float()).abs().mean(dim=(1, 2, 3))
-            l1 = (per * sample_mask).sum() / sample_mask.sum() * cfg.lambda_l1
+            l1 = ((per * sample_mask[rows]).sum() / sample_mask.sum() * ranks
+                  * cfg.lambda_l1)
         if clip_const is not None:
             clip = semantic_loss_fn.loss_staged_from_params(
-                semantic_loss_fn.model, sr, clip_const) * cfg.lambda_clip
+                semantic_loss_fn.model, sr, clip_const) * (cfg.lambda_clip * ranks)
         else:
             clip = torch.zeros((), device=l1.device)
         loss = l1 + clip
@@ -154,11 +194,23 @@ class Trainer:
     experiment tree on ``device`` (CUDA unless the CPU is asked for);
     ``run()`` trains to ``cfg.epochs``. With a ``semantic_loss_fn`` and
     ``cfg.captions_path`` (utf-16, a caption a line) each step adds the
-    semantic loss on the batch's captions."""
+    semantic loss on the batch's captions. ``cfg.mesh_data`` must equal the
+    number of ranks of the default group (1 without one); above 1 the
+    model trains under ``DistributedDataParallel`` (see the module
+    docstring) and every rank validates, so that no rank waits out the
+    group timeout while rank 0 validates alone."""
 
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
                  semantic_loss_fn: Optional[Callable] = None, writer: Any = None):
         check_ported(cfg)
+        self.rank, self.ranks = mesh_lib.world()
+        if cfg.mesh_data != self.ranks:
+            raise ValueError(
+                f"mesh_data {cfg.mesh_data} must equal the number of ranks, "
+                f"{self.ranks} here: "
+                + mesh_lib.launch_hint(cfg.mesh_data, "m2trans_tpu_torch.train"))
+        rank_rows(cfg.batch_size, self.rank, self.ranks)  # raises if uneven
+        self.main = self.rank == 0
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer on cuda: no CUDA device is available "
@@ -177,23 +229,28 @@ class Trainer:
         self.model = init_m2trans(cfg, cfg.seed, device=self.device)
         if cfg.pretrain:
             self.model = ckpt_lib.load_params_any(cfg.pretrain, cfg, self.device)
-            print(f"## load pretrained model: {cfg.pretrain}! ##")
+            self.log(f"## load pretrained model: {cfg.pretrain}! ##")
         self.optimizer = make_optimizer(cfg, self.model)
-        self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          semantic_loss_fn)
         self.start_epoch = 1
         self.stat_dict = get_stat_dict(cfg.eval_sets)
 
-        (self.experiment_path, self.models_path, log_file,
-         _) = setup_experiment(cfg)
+        # rank 0 makes the experiment tree; the others learn its paths
+        paths = [setup_experiment(cfg)[:3] if self.main else None]
+        if self.ranks > 1:
+            dist.broadcast_object_list(paths, src=0)
+        self.experiment_path, self.models_path, log_file = paths[0]
         if cfg.resume:
             restored = ckpt_lib.restore_latest(self.models_path, cfg.scale,
                                                self.model, self.optimizer)
             if restored is not None:
                 epoch, self.stat_dict = restored
                 self.start_epoch = epoch + 1
-                print(f"## resume training from epoch {self.start_epoch}. ##")
-        sys.stdout = ExperimentLogger(log_file, sys.stdout)
+                self.log(f"## resume training from epoch {self.start_epoch}. ##")
+        if self.main:
+            sys.stdout = ExperimentLogger(log_file, sys.stdout)
+
+        self.train_step = make_train_step(cfg, self.model, self.optimizer,
+                                          semantic_loss_fn)
 
         # captions for the semantic loss (reference train.py:156-157, 189-193)
         self.captions = None
@@ -228,6 +285,10 @@ class Trainer:
             epoch_loss = l1_acc = clip_acc = 0.0
             for it, batch in enumerate(self.train_loader):
                 aux = self.step(it, batch, do_cutout)
+                if self.ranks > 1:  # the global batch's losses
+                    mean = mesh_lib.all_reduce_sum(torch.stack(
+                        [aux["loss"], aux["l1"], aux["clip"]])) / self.ranks
+                    aux = dict(zip(("loss", "l1", "clip"), mean))
                 epoch_loss += float(aux["loss"])
                 l1_acc += float(aux["l1"])
                 clip_acc += float(aux["clip"])
@@ -240,7 +301,7 @@ class Trainer:
                     self.stat_dict["losses"].append(avg / (it + 1))
                     dur = time.time() - timer_start
                     timer_start = time.time()
-                    print(
+                    self.log(
                         f"Epoch:{epoch}, {(it + 1) * cfg.batch_size}/"
                         f"{len(self.train_loader.dataset)}, loss: {avg:.4f}, "
                         f"L1loss: {l1_acc / (it + 1):.4f}, "
@@ -253,15 +314,34 @@ class Trainer:
 
             if epoch % cfg.test_every == 0:
                 self._validate(epoch)
-                self._save(epoch)
+                if self.main:
+                    self._save(epoch)
+        if self.ranks > 1:
+            self.check_replicas()
         return self.stat_dict
+
+    def log(self, line: str) -> None:
+        """Print ``line`` on rank 0 (into log.txt once the tree exists)."""
+        if self.main:
+            print(line)
+
+    def check_replicas(self) -> None:
+        """Raise unless this rank holds rank 0's parameters, bit for bit (what
+        DistributedDataParallel keeps true)."""
+        flat = torch.cat([p.detach().reshape(-1) for p in self.model.parameters()])
+        diff = float((flat - mesh_lib.broadcast(flat, 0)).abs().max())
+        if diff != 0.0:
+            raise RuntimeError(f"rank {self.rank}'s parameters differ from rank "
+                               f"0's by up to {diff}")
+        self.log(f"## parameters equal on all {self.ranks} ranks ##")
 
     def _validate(self, epoch: int) -> None:
         cfg = self.cfg
         save_root = (f"{self.experiment_path}/test_results_x{cfg.scale}"
-                     if cfg.save_image else None)
-        results = evaluate_all(self.model, cfg, self.eval_sets,
-                               save_root=save_root)
+                     if cfg.save_image and self.main else None)
+        # every rank validates, so none waits for another's validation in
+        # a collective; large bf16 frames are sharded over the ranks
+        results = evaluate_all(self.model, cfg, self.eval_sets, save_root=save_root)
         log = ""
         for name, m in results.items():
             s = self.stat_dict[name]
@@ -280,8 +360,9 @@ class Trainer:
                     name, cfg.scale, m["psnr"], m["ssim"],
                     s["best_psnr"]["value"], s["best_ssim"]["value"],
                     s["best_psnr"]["epoch"], s["best_ssim"]["epoch"]))
-        print(log, end="")
-        sys.stdout.flush()
+        if self.main:
+            print(log, end="")
+            sys.stdout.flush()
 
     def _save(self, epoch: int) -> None:
         import yaml

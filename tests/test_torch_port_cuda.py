@@ -736,3 +736,48 @@ def test_bf16_eval_through_kernels(dev, tmp_path):
     assert abs(bf16["psnr"] - f32["psnr"]) <= 0.1
     for k in ("ssim", "fsim", "gmsd"):
         assert abs(bf16[k] - f32[k]) <= 2e-3, (k, bf16, f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [448, 288])
+@pytest.mark.parametrize("levels", [0, 1, 2])
+def test_k1_at_extended_shard_shapes(dev, rows, levels):
+    """K1 with the identity affine of the sharded CFTM at the extended-shard
+    heights of a 512-row frame (256 + 2 x 96 rows on 2 ranks, 128 + 2 x 96
+    on 4), W = 512, base width 16."""
+    rng = np.random.default_rng(rows + levels)
+    c = 16 * 4 ** levels
+    body = _randn(rng, (1, rows, 512, 64), dtype=torch.bfloat16)
+    wq = _randn(rng, (c, 3 * c), c ** -0.5, torch.bfloat16)
+    rel_h, rel_w = _randn(rng, (10, c // 2)), _randn(rng, (10, c // 2))
+    s = torch.full((1, 16), 0.5 if levels else 1.0)
+    t = torch.zeros(1, 16)
+    want = cftm_branch_plain(body[..., 16:32], wq, rel_h, rel_w, s, t, levels=levels)
+    got = cftm_branch(body.to(dev)[..., 16:32], wq.to(dev), rel_h.to(dev),
+                      rel_w.to(dev), s.to(dev), t.to(dev), levels=levels)
+    d = (got.float().cpu() - want.float()).abs()
+    assert float(d.max()) < 5e-2 and float(d.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+def test_two_rank_sharded_forward_on_the_card(dev):
+    """2 ranks sharing the card under gloo: the sharded x4 bf16 forward
+    through K1, K3 and K2 (4 + 1 + 1 launches a rank for one block) against
+    the single-device bf16 forward: mean 5e-3, max 1e-1."""
+    import torch_ranks
+    from m2trans_tpu_torch.parallel.mesh import run_ranks
+    from m2trans_tpu_torch.train.convert import reference_state_dict
+
+    cfg = Config(scale=4, n_feats=64, n_blocks=1)
+    model = init_m2trans(cfg, seed=0)
+    sd = {k: v.numpy() for k, v in reference_state_dict(model).items()}
+    x = np.random.default_rng(0).uniform(0, 1, (1, 128, 64, 3)).astype(np.float32)
+    kw = dict(scale=4, n_feats=64, n_blocks=1)
+    res = run_ranks(torch_ranks.spatial_rank, 2, ([("x4", kw, sd, x, "bf16")], (), "cuda"))
+    with torch.inference_mode():
+        want = m2trans_apply(model.to(dev), torch.from_numpy(x).to(dev), cfg,
+                             ComputePolicy(torch.bfloat16, True)).float().cpu().numpy()
+    for r in res:
+        assert r["x4_launches"] == [4, 1, 1] and r["loaded"] == []
+        d = np.abs(r["x4"] - want)
+        assert d.shape == (1, 512, 256, 3) and d.mean() < 5e-3 and d.max() < 1e-1

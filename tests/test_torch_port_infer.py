@@ -20,6 +20,7 @@ from m2trans_tpu.train.convert import params_to_torch_state_dict
 from m2trans_tpu_torch import infer
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import init_m2trans
+from m2trans_tpu_torch.parallel.mesh import space_mesh
 from m2trans_tpu_torch.parallel.streaming import StreamingSR
 
 
@@ -64,7 +65,8 @@ def test_infer_cli_cpu_matches_jax(tmp_path, capsys):
 def test_infer_cli_refusals(tmp_path):
     _, _, pt, yml, frames, _ = _setup(tmp_path)
     base = ["--config", str(yml), "--model_path", str(pt), "--input", str(frames)]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # --mesh-space 2 needs a world of 2 ranks; this process is one
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node 2"):
         infer.main(base + ["--mesh-space", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -76,7 +78,8 @@ def test_infer_cli_refusals(tmp_path):
 
 def test_streaming_order_u8_and_stats():
     """stream() yields frames in order with depth frames in flight, the u8
-    output is round(x*255) of the float output, and mesh is refused."""
+    output is round(x*255) of the float output, and a mesh that is no
+    SpaceMesh, or one larger than the world, is refused."""
     cfg = Config(scale=2, n_feats=8, n_blocks=1)
     model = init_m2trans(cfg, seed=2)
     from m2trans_tpu_torch.models.m2trans import ComputePolicy
@@ -92,5 +95,7 @@ def test_streaming_order_u8_and_stats():
     u8 = StreamingSR(model, cfg, policy=ComputePolicy(), output_u8=True)(frames[0])
     assert u8.dtype == np.uint8
     np.testing.assert_array_equal(u8, np.round(run(frames[0]) * 255.0).astype(np.uint8))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="SpaceMesh"):
         StreamingSR(model, cfg, mesh=object())
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node 2"):
+        StreamingSR(model, cfg, mesh=space_mesh(2))
