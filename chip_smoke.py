@@ -13,7 +13,7 @@ m2trans_tpu_torch.infer``, a flagship bf16 train step (batch 2 x 96x96 ->
 synthetic US1K tree, the standalone ops (``tblock_apply``,
 ``make_branch_fn``, the lane relayouts) and the eval CLI ``python -m
 m2trans_tpu_torch.test`` with FSIM/GMSD on a synthetic benchmark tree, and
-times the kernels, the forward and the train step with CUDA events; last
+times the kernels, the forward and the train step with CUDA events; then
 (phase 17) the training recipe's step: the same train step with the MedCLIP
 semantic loss at MedCLIP's published width (Swin-tiny 224, BERT-base,
 seeded random weights), held against the plain bf16 step, and the
@@ -24,7 +24,12 @@ world size 1 under NCCL and on 2 ranks that share the card under gloo, f32
 at 1x256x256) against the single-device forward, the infer CLI under
 ``torch.distributed.run --nproc_per_node 2`` with ``--mesh-space 2``, one
 DDP train step of 2 ranks against phase 10's one-process step and the train
-CLI with ``mesh_data: 2``. Every
+CLI with ``mesh_data: 2``; then (phase 20) the 2-D (data, space) mesh: 4
+ranks sharing the card under gloo as 2 x 2, a batch of 2 x 512x512 over the
+data rows and each image's rows over its row, against the single-device
+forward; last (phase 21) the ``Trainer`` with the C++ loader (built with g++
+in phase 2, beside the kernels), a profiler trace that must name the
+kernels, the TensorBoard panels and the complexity report. Every
 phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
@@ -943,6 +948,231 @@ def parallel_phases(dev, model, cfg, lr_b, hr_b, grads_k, grads_p, grads_f, work
             "sharded_device_ms": [r["device_ms"] for r in ranks]}
 
 
+GRID = (2, 2)                 # (data, space) ranks of phase 20
+GRID_FRAMES = (2, 512, 512)   # a batch of two single-frame-cell frames, LR
+GRID_F32_FRAMES = (2, 256, 256)
+GRID_F32_ATOL = 1e-5
+
+
+def data_space_rank(rank, n, grid):
+    """One of ``n`` ranks that share the card under gloo as a (data, space)
+    ``grid`` (phase 20): the flagship forward of a bf16 + kernels batch with
+    ``batch_axis="data"`` (its launches, event and device time) against the
+    single-device forward of the whole batch on this rank, then f32;
+    returns what it found."""
+    import torch
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans, m2trans_apply
+    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
+    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
+    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
+    from m2trans_tpu_torch.parallel import mesh as mesh_lib
+    from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
+
+    dev = mesh_lib.init_from_env("cuda")
+    cfg = load_config(os.path.join(ROOT, CONFIG))
+    model = init_m2trans(cfg, seed=0, device=dev)
+    mesh = mesh_lib.data_space_mesh(*grid)
+    kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
+    counters = (cftm_branch, ff_conv, tail_band_fused)
+    out = {"at": (mesh.data.rank, mesh.space.rank), "shared": mesh_lib.shared_card_note()}
+
+    def sharded(x, policy):
+        return spatial_sharded_forward(model, x, cfg, mesh=mesh, policy=policy,
+                                       batch_axis="data")
+
+    with torch.inference_mode():
+        x = seeded_frame(GRID_FRAMES, 20).to(dev)
+        single = m2trans_apply(model, x, cfg, kern)
+        for f in counters:
+            f.launches = 0
+        y = sharded(x, kern)
+        torch.cuda.synchronize()
+        out["launches"] = [f.launches for f in counters]
+        out["shape"] = tuple(y.shape)
+        out["finite"] = bool(torch.isfinite(y.float()).all())
+        out["err"] = errs(y, single)
+        out["ms"] = time_ms(lambda: sharded(x, kern), n=5, warm=1)
+        out["single_ms"] = time_ms(lambda: m2trans_apply(model, x, cfg, kern), n=5, warm=1)
+        out["device_ms"], out["copy_ms"] = device_ms(lambda: sharded(x, kern), n=3, warm=1,
+                                                     copies=True)
+        x32 = seeded_frame(GRID_F32_FRAMES, 21).to(dev)
+        y32 = sharded(x32, ComputePolicy())
+        out["f32_err"] = errs(y32, m2trans_apply(model, x32, cfg, ComputePolicy()))
+        out["f32_shape"] = tuple(y32.shape)
+    out["loaded"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "m2trans_tpu"))
+    return out
+
+
+def data_space_phase() -> dict:
+    """Phase 20: the flagship forward over a 2 x 2 (data, space) mesh of 4
+    ranks sharing the card under gloo, a batch of 2 x 512x512 split over the
+    data rows and each image's rows over its row's 2 ranks, held on every
+    rank against the single-device forward (bf16 with the kernels; f32 at 2
+    x 256x256). Returns rank 0's launches for the kernels line."""
+    from m2trans_tpu_torch.parallel.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(data_space_rank, GRID[0] * GRID[1], (GRID,), timeout_s=400,
+                      group_timeout_s=300)
+    b, h, w = GRID_FRAMES
+    for r, res in enumerate(ranks):
+        need(res["loaded"] == [], f"rank {r} loaded {res['loaded']}")
+        need(res["at"] == divmod(r, GRID[1]) and res["shared"],
+             f"rank {r} at {res['at']}, {res['shared']!r}")
+        need(res["launches"] == [32, 8, 1],
+             f"rank {r}: 2-D mesh forward launched {res['launches']}, want 32 K1, 8 K3, 1 K2")
+        need(res["finite"] and res["shape"] == (b, 4 * h, 4 * w, 3),
+             f"rank {r}: 2-D mesh output {res['shape']}, finite {res['finite']}")
+        need(res["err"][0] < FWD_TOL[0] and res["err"][1] < FWD_TOL[1],
+             f"rank {r}: 2-D mesh vs single-device bf16 max/mean {res['err']}")
+        need(res["f32_err"][0] <= GRID_F32_ATOL
+             and res["f32_shape"] == (GRID_F32_FRAMES[0], 4 * GRID_F32_FRAMES[1],
+                                      4 * GRID_F32_FRAMES[2], 3),
+             f"rank {r}: f32 2-D mesh vs single-device max {res['f32_err'][0]}")
+    print(f"phase 20 2-D (data, space) mesh {GRID[0]}x{GRID[1]}, flagship x4 forward, "
+          f"batch {b}x{h}x{w} bf16 + kernels, {ranks[0]['shared']}: launches a rank "
+          + " / ".join(str(r["launches"]) for r in ranks) + "; vs single-device max/mean "
+          + " / ".join(f"{r['err'][0]:.3g}/{r['err'][1]:.3g}" for r in ranks)
+          + f"; f32 (TF32 off) {GRID_F32_FRAMES[0]}x{GRID_F32_FRAMES[1]}x"
+          f"{GRID_F32_FRAMES[2]} max " + " / ".join(f"{r['f32_err'][0]:.3g}" for r in ranks)
+          + "; event ms a batch, 2-D mesh vs single-device "
+          + " / ".join(f"{r['ms']:.3f} vs {r['single_ms']:.3f}" for r in ranks)
+          + ", device ms " + " / ".join(f"{fmt_ms(r['device_ms'])} (memory copies "
+                                        f"{fmt_ms(r['copy_ms'])})" for r in ranks)
+          + f"; phase 20 in {time.perf_counter() - t0:.1f} s")
+    return {"launches": ranks[0]["launches"]}
+
+
+# the kernels' names in a trace (csrc/), by kernel
+TRACE_KERNELS = {"K1": ("cftm_branch_w16_kernel", "cftm_branch_w64_kernel",
+                        "cftm_branch_c256_kernel"),
+                 "K1b": ("cftm_bwd_attn_win_kernel", "cftm_bwd_attn_c256_kernel",
+                         "cftm_bwd_proj_kernel"),
+                 "K2": ("tail_band_kernel",), "K2b": ("tail_band_bwd_kernel",),
+                 "K3": ("ff_conv_kernel",)}
+
+
+class PanelWriter:
+    """A recording TensorBoard writer (the GPU machine has no
+    ``tensorboardX``) that holds each train panel's SR third against the
+    kernel forward of the batch just stepped, made when the panel arrives."""
+
+    def __init__(self):
+        self.images, self.scalars = [], []
+        self.trainer, self.batch, self.sr_checked = None, None, 0
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, step))
+
+    def add_image(self, tag, img, step, dataformats="CHW"):
+        import numpy as np
+        import torch
+
+        from m2trans_tpu_torch.models.m2trans import m2trans_apply, policy_from_config
+
+        self.images.append((tag, step, dataformats, img.shape, img.dtype))
+        if tag.startswith("Train/"):
+            t = self.trainer
+            with torch.no_grad():
+                lr1 = torch.from_numpy(self.batch[0][:1]).to(t.device)
+                sr = m2trans_apply(t.model, lr1, t.cfg, policy_from_config(t.cfg))
+            want = np.clip(sr[0].float().cpu().numpy() / t.cfg.rgb_range * 255.0,
+                           0, 255).astype(np.uint8)
+            w = img.shape[1] // 3
+            d = np.abs(img[:, w:2 * w].astype(np.int32) - want.astype(np.int32))
+            need(d.max() == 0, f"train panel's SR third differs from the kernel forward "
+                 f"of its frame by up to {d.max()} levels")
+            self.sr_checked += 1
+
+
+def trainer_phase(dev, tcfg, work) -> None:
+    """Phase 21: the ``Trainer`` in this process with the default
+    ``native_loader`` (the C++ loader) on a synthetic US1K tree, one epoch
+    of 12 steps of the flagship bf16 + kernels with ``profile_dir`` (the
+    trace of steps 6-10 must name K1's, K1b's, K2's, K2b's and K3's kernels)
+    and a recording writer (one train panel of 384x1152x3 uint8 whose SR
+    third is the kernel forward of its frame, one eval panel), then the
+    complexity report."""
+    import numpy as np
+    import yaml
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch_bwd
+    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_bwd
+    from m2trans_tpu_torch.runtime import NativeTrainLoader
+    from m2trans_tpu_torch.train.loop import Trainer
+    from m2trans_tpu_torch.utils.flops import model_complexity_report
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        write_us1k_tree(os.path.join(tmp, "data"), np.random.default_rng(21))
+        with open(os.path.join(ROOT, "configs", "M2Trans_x4.yml")) as f:
+            ycfg = yaml.safe_load(f)
+        prof_dir = os.path.join(tmp, "prof")
+        ycfg.update(dtype="bfloat16", use_pallas=True, data_path=os.path.join(tmp, "data"),
+                    train_range=[1, 4], data_repeat=8, epochs=1, log_every=4,
+                    eval_sets=["CCA-US"], log_path=os.path.join(tmp, "exp"), threads=2,
+                    profile_dir=prof_dir, n_feats=tcfg.n_feats, n_blocks=tcfg.n_blocks)
+        yml = os.path.join(tmp, "train.yml")
+        with open(yml, "w") as f:
+            yaml.dump(ycfg, f)
+        cfg = load_config(yml)
+        need(cfg.native_loader and cfg.colors == 3 and cfg.data_augment,
+             "the x4 training config no longer selects the C++ loader")
+        writer = PanelWriter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trainer = Trainer(cfg, device=dev, writer=writer)
+            loader_kind = type(trainer.train_loader)
+            step = trainer.step
+
+            def stepped(it, batch, do_cutout=False):
+                writer.batch = batch
+                return step(it, batch, do_cutout)
+
+            trainer.step, writer.trainer = stepped, trainer
+            cftm_branch_bwd.launches = tail_band_bwd.launches = 0
+            trainer.run()
+            sys.stdout.log.close()
+        steps = trainer.steps_per_epoch
+        bwd = (cftm_branch_bwd.launches, tail_band_bwd.launches)
+        need(loader_kind is NativeTrainLoader,
+             f"the Trainer's loader is {loader_kind.__name__}, not the C++ loader")
+        need(steps >= 12 and bwd == (32 * steps, steps),
+             f"{steps} steps launched K1b / K2b {bwd}")
+        traces = os.listdir(prof_dir)
+        need(traces == ["trace_rank0.json"], f"profile_dir holds {traces}")
+        trace_path = os.path.join(prof_dir, traces[0])
+        trace_mb = os.path.getsize(trace_path) / 2 ** 20
+        with open(trace_path) as f:
+            text = f.read()
+        missing = [k for names in TRACE_KERNELS.values() for k in names if k not in text]
+        need(not missing, f"the profiler trace names no {missing}")
+    train_panels = [im for im in writer.images if im[0] == "Train/lr_sr_hr_image"]
+    eval_panels = [im for im in writer.images if im[0].startswith("Valid_")]
+    need(train_panels == [("Train/lr_sr_hr_image", 0, "HWC", (384, 1152, 3), np.uint8)]
+         and writer.sr_checked == 1, f"train panels {train_panels}")
+    need(eval_panels == [("Valid_CCA-US/lr_sr_hr_image", 1, "HWC", (128, 288, 3),
+                          np.uint8)], f"eval panels {eval_panels}")
+    need(len(writer.scalars) == steps // 4 + 2, f"scalars {writer.scalars}")
+    report = model_complexity_report(trainer.model, trainer.cfg)
+    need(report.startswith("## Flops: ") and report.endswith(
+        "GMac-equiv (torch flop_counter, 96x96 input), Params: 3.63 M"),
+        f"complexity report {report!r}")
+    psnr = [ln for ln in buf.getvalue().splitlines() if "PSNR/SSIM" in ln]
+    print(f"phase 21 Trainer x4 bf16 + kernels with the C++ loader "
+          f"({loader_kind.__name__}), 1 epoch of {steps} steps (2x96x96 -> 384x384): K1b / "
+          f"K2b launches {bwd}; profiler trace of steps 6-10 ({trace_mb:.1f} MiB) names "
+          + ", ".join(f"{k} ({'/'.join(v)})" for k, v in TRACE_KERNELS.items())
+          + f"; panels: train {train_panels[0][1:4]}, its SR third equal to the kernel "
+          f"forward of its frame; eval {eval_panels[0][:2]}; scalars {len(writer.scalars)}; "
+          f"{psnr[-1].strip() if psnr else ''}; {report}; phase 21 in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def run() -> dict:
     import torch
 
@@ -952,6 +1182,7 @@ def run() -> dict:
         init_m2trans,
         m2trans_apply,
     )
+    from m2trans_tpu_torch import runtime
     from m2trans_tpu_torch.models import m2trans as port_model
     from m2trans_tpu_torch.ops.kernels import build, relayout
     from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv, ff_conv_plain
@@ -985,12 +1216,16 @@ def run() -> dict:
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     torch.cuda.set_device(0)
 
-    # 2. build the kernels from the checkout's sources
+    # 2. build the kernels and the C++ loader from the checkout's sources
     t0 = time.perf_counter()
     lib_path = build.build()
     build.lib()
-    print(f"phase 2 built {os.path.relpath(lib_path, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds} s)")
+    t1 = time.perf_counter()
+    loader_path = runtime.build()
+    runtime.lib()
+    print(f"phase 2 built {os.path.relpath(lib_path, ROOT)} in {t1 - t0:.1f} s (nvcc "
+          f"{build.build_seconds} s), the C++ loader "
+          f"{os.path.relpath(loader_path, ROOT)} in {time.perf_counter() - t1:.1f} s")
 
     # 3. K1 vs its plain version at the slice shapes and at the single-frame
     # StreamingSR shape (more windows than the card holds at once), and at a
@@ -1604,6 +1839,14 @@ def run() -> dict:
     # 18, 19. the sharded forward and data parallelism (two ranks on the card)
     par = parallel_phases(dev, model, cfg, lr_b, hr_b, grads_k, grads_p, grads_f, work)
 
+    # 20. the 2-D (data, space) mesh (four ranks on the card)
+    grid = data_space_phase()
+
+    # 21. the Trainer with the C++ loader, a profiler trace, the panels and
+    # the complexity report (the profiler last: a process that has run it
+    # launches more slowly)
+    trainer_phase(dev, tcfg, work)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -1628,6 +1871,7 @@ def run() -> dict:
          "device_ms_1x512x512_by_level": k1_frame_dev,
          "resident_by_level": dict(enumerate(resident)),
          "launches_sharded_forward_per_rank": par["sharded_forward"][0],
+         "launches_2d_mesh_per_rank": grid["launches"][0],
          "launches_ddp_step_per_rank": par["ddp_step"][0]},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
@@ -1635,6 +1879,7 @@ def run() -> dict:
          "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None,
          "device_ms": k2_dev, "device_ms_1x512x512": k2_frame_dev,
          "launches_sharded_forward_per_rank": par["sharded_forward"][2],
+         "launches_2d_mesh_per_rank": grid["launches"][2],
          "launches_ddp_step_per_rank": par["ddp_step"][2]},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
@@ -1662,6 +1907,7 @@ def run() -> dict:
          "ms": k3_ms, "plain_ms": k3_plain_ms, **k3_bound, "library_ms": k3_lib_ms,
          "device_ms": k3_dev[0], "library_device_ms": k3_dev[2],
          "launches_sharded_forward_per_rank": par["sharded_forward"][1],
+         "launches_2d_mesh_per_rank": grid["launches"][1],
          "launches_ddp_step_per_rank": par["ddp_step"][1]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",

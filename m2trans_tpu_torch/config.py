@@ -65,8 +65,8 @@ class Config:
     # test-only
     model_path: Optional[str] = None
 
-    # knobs of the JAX package (the port reads ``dtype`` and ``use_pallas``,
-    # which turns its CUDA kernels on in bf16)
+    # knobs of the JAX package, all read by the port (``use_pallas`` turns
+    # its CUDA kernels on in bf16; ``native_loader`` selects the C++ loader)
     seed: int = 33
     dtype: str = "float32"
     use_pallas: bool = False

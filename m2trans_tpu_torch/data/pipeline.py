@@ -4,13 +4,17 @@ port of m2trans_tpu/data/pipeline.py.
 ``create_datasets(cfg) -> (train_loader, [{'name', 'dataset'}, ...])`` with
 eval-set names CCA-US -> benchmark/UI5, US-CASE -> benchmark/US15,
 US1K_23 -> benchmark/US1K_23 under ``cfg.data_path`` (reference
-datas/utils.py:7-53). The loader is the JAX package's threaded numpy
-loader with the same per-batch numpy RNG, so its batches equal the JAX
-loader's. The JAX package's C++ loader (m2trans_tpu/runtime) is not ported
-yet: ``native_loader`` is not read here.
+datas/utils.py:7-53). The train loader is chosen as the JAX package
+chooses it: the C++ loader (``runtime.NativeTrainLoader``, the port's copy
+of ``m2trans_tpu/runtime/loader.cc``) when ``native_loader`` is set, the
+images are RGB (``colors == 3``), ``data_augment`` is on and
+``faithful_tail_batch`` off, which every shipped training config selects;
+otherwise, or when the C++ loader rejects the cache, the threaded numpy
+loader below. Each yields the batches of its JAX counterpart, bit for bit.
 
 Data parallelism: every rank's loader yields the same global batch (one
-seed, the batch-index-derived RNG); each rank keeps the rows
+seed; either loader derives batch b of an epoch from the seed, the epoch and
+b alone); each rank keeps the rows
 :func:`rank_rows` gives it, after the augmentations (which draw on the
 global batch).
 """
@@ -19,13 +23,14 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.benchmark import BenchmarkDataset
 from m2trans_tpu_torch.data.us1k import US1KDataset
+from m2trans_tpu_torch.runtime import LoaderRejected, NativeTrainLoader
 
 EVAL_SET_DIRS = {
     "CCA-US": "benchmark/UI5",
@@ -173,7 +178,7 @@ class TrainLoader:
 
 def create_datasets(
     cfg: Config, *, train: bool = True
-) -> Tuple[Optional[TrainLoader], List[Dict]]:
+) -> Tuple[Optional[Union[TrainLoader, NativeTrainLoader]], List[Dict]]:
     """Reference-parity factory. Returns (train_loader_or_None, eval_sets)
     where each eval set is {'name': str, 'dataset': BenchmarkDataset}."""
     train_loader = None
@@ -194,9 +199,22 @@ def create_datasets(
             start_idx=int(cfg.train_range[0]),
             end_idx=int(cfg.train_range[1]),
         )
-        train_loader = TrainLoader(ds, cfg.batch_size,
-                                   num_workers=cfg.threads, seed=cfg.seed,
-                                   include_tail=cfg.faithful_tail_batch)
+        if cfg.native_loader and cfg.colors == 3 and cfg.data_augment \
+                and not cfg.faithful_tail_batch:
+            try:
+                train_loader = NativeTrainLoader(
+                    ds.hr_npy, ds.lr_npy, patch_size=cfg.patch_size,
+                    scale=cfg.scale, batch_size=cfg.batch_size,
+                    repeat=cfg.data_repeat, num_workers=cfg.threads,
+                    seed=cfg.seed)
+                train_loader.dataset = ds  # len(dataset) for the log lines
+            except LoaderRejected as e:
+                print(f"## native loader unavailable ({e}); "
+                      "using the Python loader ##")
+        if train_loader is None:
+            train_loader = TrainLoader(ds, cfg.batch_size,
+                                       num_workers=cfg.threads, seed=cfg.seed,
+                                       include_tail=cfg.faithful_tail_batch)
 
     eval_sets = []
     for name in cfg.eval_sets or []:

@@ -149,7 +149,18 @@ class SpaceMesh:
         return t if backend() is None else all_reduce_sum(t, self.group)
 
 
-_SUBGROUPS: Dict[int, Any] = {}
+_SUBGROUPS: Dict[tuple, Any] = {}  # member ranks -> their process group
+
+
+def _group(ranks: tuple):
+    """The process group of ``ranks`` (the default group when they are the
+    whole world), created once. ``dist.new_group`` is collective: every rank
+    of the world must ask for the same groups in the same order."""
+    if len(ranks) == world()[1]:
+        return None
+    if ranks not in _SUBGROUPS:
+        _SUBGROUPS[ranks] = dist.new_group(list(ranks))
+    return _SUBGROUPS[ranks]
 
 
 def space_mesh(n: Optional[int] = None) -> SpaceMesh:
@@ -163,11 +174,41 @@ def space_mesh(n: Optional[int] = None) -> SpaceMesh:
                          f"{n} ranks, this one has {size}: {launch_hint(n)}")
     if n == 1:
         return SpaceMesh(1, 0 if rank == 0 else -1)
-    if n == size:
-        return SpaceMesh(n, rank)
-    if n not in _SUBGROUPS:
-        _SUBGROUPS[n] = dist.new_group(list(range(n)))
-    return SpaceMesh(n, rank if rank < n else -1, _SUBGROUPS[n])
+    return SpaceMesh(n, rank if rank < n else -1, _group(tuple(range(n))))
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpaceMesh:
+    """A 2-D (data, space) mesh (the JAX ``Mesh`` of
+    ``devices.reshape(n_data, n_space)`` with axes ("data", "space")): rank
+    ``r`` sits at (``r // n_space``, ``r % n_space``). ``space`` is the
+    :class:`SpaceMesh` of this rank's data row, the ranks that shard one
+    image by rows; ``data`` its column, whose ``rank`` is this rank's data
+    index and ``n`` the data count. A rank outside the mesh has index -1 in
+    both."""
+
+    space: SpaceMesh
+    data: SpaceMesh
+
+
+def data_space_mesh(n_data: int, n_space: int) -> DataSpaceMesh:
+    """The (data, space) mesh over the first ``n_data * n_space`` ranks of
+    the default group. Every rank creates every row group and every column
+    group, in one fixed order, so every rank must call it alike."""
+    rank, size = world()
+    n = n_data * n_space
+    if n_data < 1 or n_space < 1 or n > size:
+        raise ValueError(f"a ({n_data}, {n_space}) data x space mesh needs a "
+                         f"world of at least {n} ranks, this one has {size}: "
+                         f"{launch_hint(n)}")
+    rows = [tuple(range(d * n_space, (d + 1) * n_space)) for d in range(n_data)]
+    cols = [tuple(range(s, n, n_space)) for s in range(n_space)]
+    groups = {ranks: _group(ranks) for ranks in rows + cols}
+    if rank >= n:
+        return DataSpaceMesh(SpaceMesh(n_space, -1), SpaceMesh(n_data, -1))
+    d, s = divmod(rank, n_space)
+    return DataSpaceMesh(SpaceMesh(n_space, s, groups[rows[d]]),
+                         SpaceMesh(n_data, d, groups[cols[s]]))
 
 
 # ---------------------------------------------------------------------------

@@ -28,14 +28,20 @@ the single-device f32 forward. The output is the whole frame on every rank
 The JAX module's ``fused_gate_ok`` is a TPU VMEM gate and has no
 counterpart: :func:`auto_space_mesh` shards bf16 frames of at least
 :data:`_AUTO_PX_THRESHOLD` pixels when there is more than one rank.
-The 2-D (data, space) mesh (``batch_axis``) is not ported.
+
+The 2-D (data, space) mesh (``batch_axis="data"`` with a
+:class:`~m2trans_tpu_torch.parallel.mesh.DataSpaceMesh`): the batch splits
+evenly over the data rows, each row runs the forward above on its images
+over its own ranks (halo strips and IN statistics stay inside the row: the
+statistics are per image), and the result is gathered over the row, then
+over the data column, so every rank again holds the whole batch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -53,7 +59,7 @@ from m2trans_tpu_torch.models.m2trans import (
 )
 from m2trans_tpu_torch.ops.conv import conv2d
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
-from m2trans_tpu_torch.parallel.mesh import SpaceMesh, space_mesh, world
+from m2trans_tpu_torch.parallel.mesh import DataSpaceMesh, SpaceMesh, space_mesh, world
 
 # Per-CFTM halo width: the invalid depth at an extension boundary grows
 # through the branch cascade as windowed attention is block aligned (8, 16,
@@ -172,16 +178,31 @@ def _tail_sharded(p, y: torch.Tensor, *, scale: int, mesh: SpaceMesh,
 
 
 def spatial_sharded_forward(model: M2Trans, x: torch.Tensor, cfg: Config, *,
-                            mesh: SpaceMesh, policy: Optional[ComputePolicy] = None,
+                            mesh: Union[SpaceMesh, DataSpaceMesh],
+                            policy: Optional[ComputePolicy] = None,
                             batch_axis: Optional[str] = None) -> torch.Tensor:
     """Full-frame SR forward with the frame's rows sharded over ``mesh``.
-    Every rank of the mesh calls it with the same (B, H, W, colors) frame
+    Every rank of the mesh calls it with the same (B, H, W, colors) batch
     and gets the whole (B, H*scale, W*scale, 3) result in the policy's
-    dtype. The padded height must split evenly: pad32(H) % (32 n) == 0."""
-    if batch_axis is not None:
-        raise NotImplementedError(
-            "spatial_sharded_forward: the 2-D (data, space) mesh (batch_axis) "
-            "is not ported to the torch package")
+    dtype. The padded height must split evenly: pad32(H) % (32 n) == 0, n
+    the ranks that shard one image. With ``batch_axis="data"`` ``mesh`` is a
+    :class:`DataSpaceMesh` and B must split evenly over its data rows."""
+    if batch_axis is None:
+        return _rows_forward(model, x, cfg, mesh, policy)
+    if batch_axis != "data" or not isinstance(mesh, DataSpaceMesh):
+        raise ValueError(f"batch_axis {batch_axis!r}: the batch axis is 'data', "
+                         "over the rows of a DataSpaceMesh")
+    nd, d = mesh.data.n, mesh.data.rank
+    if x.shape[0] % nd:
+        raise ValueError(f"batch {x.shape[0]} must divide evenly over {nd} data "
+                         f"rows (set the batch to a multiple of {nd})")
+    per = x.shape[0] // nd
+    y = _rows_forward(model, x[d * per:(d + 1) * per], cfg, mesh.space, policy)
+    return torch.cat(mesh.data.all_gather(y), dim=0)
+
+
+def _rows_forward(model: M2Trans, x: torch.Tensor, cfg: Config, mesh: SpaceMesh,
+                  policy: Optional[ComputePolicy]) -> torch.Tensor:
     if mesh.rank < 0:
         raise ValueError("spatial_sharded_forward: this rank is not in the mesh")
     policy = policy or policy_from_config(cfg)

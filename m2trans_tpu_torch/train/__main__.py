@@ -35,9 +35,9 @@ def main(argv=None) -> None:
     import torch
 
     from m2trans_tpu_torch.config import load_config
-    from m2trans_tpu_torch.models.m2trans import param_count
     from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.train.loop import Trainer
+    from m2trans_tpu_torch.utils.flops import model_complexity_report
 
     device = mesh_lib.init_from_env(args.device)
     rank, n_ranks = mesh_lib.world()
@@ -66,8 +66,8 @@ def main(argv=None) -> None:
     trainer = Trainer(cfg, device=device, semantic_loss_fn=semantic_loss_fn)
     if SummaryWriter is not None and rank == 0:
         trainer.writer = SummaryWriter(logdir=trainer.experiment_path)
-    say(f"## params: {param_count(trainer.model)} "
-        f"({param_count(trainer.model, trainable_only=True)} trainable) ##")
+    if rank == 0:  # FLOPs/params report (reference train.py:148-152)
+        print(model_complexity_report(trainer.model, cfg))
     trainer.run()
     if n_ranks > 1:
         torch.distributed.destroy_process_group()

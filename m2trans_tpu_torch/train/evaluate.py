@@ -15,8 +15,9 @@ runs the same evaluation and bf16 frames of 512x512 pixels or more are
 sharded by rows over the ranks (:func:`make_forward_fn`, JAX
 ``make_forward_fn(auto_space=True)``); f32 parity stays single-device.
 
-Not ported yet: the TensorBoard comparison panels (they need
-``ops/resize.py``).
+With a TensorBoard ``writer`` every 20th frame of a set adds a [bilinear
+LR-up | SR | HR] panel, ``Valid_<set>/lr_sr_hr_image`` at step
+``writer_step + n`` (reference train.py:281-296).
 """
 
 from __future__ import annotations
@@ -65,11 +66,15 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
                      policy: Optional[ComputePolicy] = None,
                      full_metrics: bool = False,
                      save_dir: Optional[str] = None,
+                     writer=None,
+                     writer_tag: Optional[str] = None,
+                     writer_step: int = 0,
                      bucket: int = 0,
                      auto_space: bool = True) -> Dict[str, float]:
     """PSNR/SSIM (and with ``full_metrics`` FSIM/GMSD) averaged over a
     benchmark set, with the reference's rounding biases, on the model's
-    device. ``auto_space``: see :func:`make_forward_fn`.
+    device. ``auto_space``: see :func:`make_forward_fn`. With a ``writer``
+    every 20th frame emits its comparison panel (see the module docstring).
 
     ``bucket > 0`` reflect-pads every LR frame up to a multiple of
     ``bucket`` before the forward and crops the SR back, so frames of many
@@ -93,6 +98,13 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
             if sr.shape != hr_t.shape:
                 raise ValueError(f"{name}: SR {tuple(sr.shape)} != HR "
                                  f"{tuple(hr_t.shape)}")
+            if writer is not None and n % 20 == 0:
+                from m2trans_tpu_torch.train.loop import _comparison_panel
+
+                panel = _comparison_panel(lr[0], sr[0].float().cpu().numpy(), hr[0],
+                                          cfg.rgb_range)
+                writer.add_image(f"Valid_{writer_tag}/lr_sr_hr_image", panel,
+                                 writer_step + n, dataformats="HWC")
             if full_metrics:
                 sums["fsim"] += float(fsim(hr_t, sr, data_range=cfg.rgb_range)[0])
                 sums["gmsd"] += float(gmsd(hr_t, sr, data_range=cfg.rgb_range)[0])
@@ -121,6 +133,8 @@ def evaluate_all(model: M2Trans, cfg: Config, eval_sets: List[Dict], *,
                  policy: Optional[ComputePolicy] = None,
                  full_metrics: bool = False,
                  save_root: Optional[str] = None,
+                 writer=None,
+                 writer_step: int = 0,
                  bucket: int = 0,
                  auto_space: bool = True) -> Dict[str, Dict[str, float]]:
     results = {}
@@ -128,6 +142,7 @@ def evaluate_all(model: M2Trans, cfg: Config, eval_sets: List[Dict], *,
         save_dir = os.path.join(save_root, item["name"]) if save_root else None
         results[item["name"]] = evaluate_dataset(
             model, cfg, item["dataset"], policy=policy,
-            full_metrics=full_metrics, save_dir=save_dir, bucket=bucket,
+            full_metrics=full_metrics, save_dir=save_dir, writer=writer,
+            writer_tag=item["name"], writer_step=writer_step, bucket=bucket,
             auto_space=auto_space)
     return results

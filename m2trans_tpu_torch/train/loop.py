@@ -25,15 +25,27 @@ own rows, so N ranks take the step one process takes on the global batch.
 Every rank validates, as every JAX process does (bf16 frames of 512x512
 pixels or more sharded over the ranks), so no rank waits in a collective
 while another validates; rank 0 alone prints and writes the experiment
-tree, the TensorBoard scalars and the checkpoints; ``--resume`` loads on
-every rank.
+tree, the TensorBoard scalars, images and the checkpoints; ``--resume``
+loads on every rank.
 
-Not ported yet, and raising ``NotImplementedError`` rather than skipped:
-profiler traces (``profile_dir``).
+TensorBoard (a ``writer`` with ``add_scalar`` / ``add_image``, rank 0's):
+``Train/loss`` every ``log_every`` steps; every 200 steps of an epoch a
+``Train/lr_sr_hr_image`` panel ([bilinear LR-up | SR | HR] of the batch's
+first image, :func:`_comparison_panel`); after each validation the
+``Valid_<set>/PSNR`` and ``/SSIM`` scalars and a panel of every 20th frame
+(``train/evaluate.py``).
+
+Profiler traces (``profile_dir``): ``torch.profiler`` traces steps 6-10 of
+the run's first epoch (host activity, and the card's where the model lies on
+one) and writes ``<profile_dir>/trace_rank<r>.json``, a Chrome trace a rank.
+An epoch of fewer than 11 steps is traced to its end (JAX leaves that trace
+running). A process that has run ``torch.profiler`` launches kernels more
+slowly afterwards, so time nothing in it after a traced run.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -59,6 +71,7 @@ from m2trans_tpu_torch.models.m2trans import (
     m2trans_apply,
     policy_from_config,
 )
+from m2trans_tpu_torch.ops.resize import bilinear_resize
 from m2trans_tpu_torch.parallel import mesh as mesh_lib
 from m2trans_tpu_torch.train import checkpoint as ckpt_lib
 from m2trans_tpu_torch.train.evaluate import evaluate_all
@@ -70,12 +83,16 @@ from m2trans_tpu_torch.utils.experiment import (
 )
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise on the options of the JAX training loop that the port does
-    not have yet."""
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "profile_dir: not yet ported to the torch package")
+def _comparison_panel(lr_np: np.ndarray, sr_np: np.ndarray, hr_np: np.ndarray,
+                      rgb_range: float) -> np.ndarray:
+    """HWC uint8 [bilinear-upscaled LR | SR | HR] strip (the reference's
+    TensorBoard image dump, train.py:218-233; JAX ``_comparison_panel``)."""
+    h, w = hr_np.shape[0], hr_np.shape[1]
+    lr = torch.from_numpy(np.asarray(lr_np, np.float32))[None]
+    lr_up = bilinear_resize(lr, (h, w))[0].numpy()
+    panel = np.concatenate([lr_up, np.asarray(sr_np, np.float32),
+                            np.asarray(hr_np, np.float32)], axis=1)
+    return np.clip(panel / rgb_range * 255.0, 0, 255).astype(np.uint8)
 
 
 def make_optimizer(cfg: Config, model: M2Trans) -> torch.optim.Adam:
@@ -202,7 +219,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
                  semantic_loss_fn: Optional[Callable] = None, writer: Any = None):
-        check_ported(cfg)
         self.rank, self.ranks = mesh_lib.world()
         if cfg.mesh_data != self.ranks:
             raise ValueError(
@@ -274,6 +290,36 @@ class Trainer:
         return self.train_step(lr_img, hr_img, mask, captions=tokens, rng=self.rng,
                                do_cutout=do_cutout)
 
+    def panel(self, batch) -> np.ndarray:
+        """The comparison panel of the batch's first image, its SR from the
+        model as it stands, under the training policy: the bare module (not
+        the DDP wrapper) under ``no_grad``, not ``inference_mode``, whose
+        tensors must not reach the weight caches that the next backward
+        reads."""
+        with torch.no_grad():
+            lr1 = torch.from_numpy(batch[0][:1]).to(self.device)
+            sr = m2trans_apply(self.model, lr1, self.cfg, policy_from_config(self.cfg))
+        return _comparison_panel(batch[0][0], sr[0].float().cpu().numpy(),
+                                 batch[1][0], self.cfg.rgb_range)
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.cfg.profile_dir, f"trace_rank{self.rank}.json"))
+
     def run(self) -> Dict:
         cfg = self.cfg
         timer_start = time.time()
@@ -283,6 +329,7 @@ class Trainer:
             # cutout only early on (reference train.py:180-181)
             do_cutout = bool(cfg.cutout) and epoch < cfg.epochs * 0.2
             epoch_loss = l1_acc = clip_acc = 0.0
+            prof = None
             for it, batch in enumerate(self.train_loader):
                 aux = self.step(it, batch, do_cutout)
                 if self.ranks > 1:  # the global batch's losses
@@ -292,6 +339,19 @@ class Trainer:
                 epoch_loss += float(aux["loss"])
                 l1_acc += float(aux["l1"])
                 clip_acc += float(aux["clip"])
+
+                # profiler trace of a few steady-state steps
+                if cfg.profile_dir and epoch == self.start_epoch:
+                    if it == 5:
+                        prof = self._start_profile()
+                    elif it == 10:
+                        self._stop_profile(prof)
+                        prof = None
+
+                # TensorBoard comparison panels (reference train.py:218-233)
+                if self.writer is not None and it % 200 == 0:
+                    self.writer.add_image("Train/lr_sr_hr_image", self.panel(batch),
+                                          it, dataformats="HWC")
 
                 if (it + 1) % cfg.log_every == 0:
                     avg = epoch_loss / (it + 1)
@@ -311,6 +371,8 @@ class Trainer:
                         step = (epoch - 1) * self.steps_per_epoch + it + 1
                         self.writer.add_scalar("Train/loss", float(aux["loss"]),
                                                step * cfg.batch_size)
+            if prof is not None:  # an epoch of fewer than 11 steps
+                self._stop_profile(prof)
 
             if epoch % cfg.test_every == 0:
                 self._validate(epoch)
@@ -341,7 +403,8 @@ class Trainer:
                      if cfg.save_image and self.main else None)
         # every rank validates, so none waits for another's validation in
         # a collective; large bf16 frames are sharded over the ranks
-        results = evaluate_all(self.model, cfg, self.eval_sets, save_root=save_root)
+        results = evaluate_all(self.model, cfg, self.eval_sets, save_root=save_root,
+                               writer=self.writer, writer_step=epoch)
         log = ""
         for name, m in results.items():
             s = self.stat_dict[name]

@@ -59,10 +59,22 @@ F32_CASES = {
 }
 BF16_CASE = (dict(scale=2, n_feats=8, n_blocks=1), (1, 64, 32), 2)
 UNEVEN = (dict(scale=2, n_feats=8, n_blocks=1), (1, 96, 64))  # pad32 96
+# the 2-D (data, space) mesh on 4 ranks as 2 x 2 (tests/test_spatial.py's
+# test_data_space_2d_mesh on 2 x 2): name: (config, batch (B, H, W), policy);
+# 2 images a data row, each row of 2 ranks takes single-hop halos
+GRID = (2, 2)
+GRID_CASES = {"2d_f32": (dict(scale=2, n_feats=8, n_blocks=1), (4, 128, 45), "f32"),
+              "2d_bf16": (dict(scale=3, n_feats=8, n_blocks=1), (2, 64, 32), "bf16")}
+GRID_UNEVEN = (dict(scale=2, n_feats=8, n_blocks=1), (3, 64, 32))  # 3 over 2 rows
 
 
 def _mesh(n):
     return Mesh(np.array(jax.devices()[:n]), ("space",))
+
+
+def _grid_mesh(n_data, n_space):
+    return Mesh(np.array(jax.devices()[:n_data * n_space]).reshape(n_data, n_space),
+                ("data", "space"))
 
 
 def _weights(kw, seed):
@@ -101,9 +113,23 @@ def runs():
     kw, shape = UNEVEN
     for n in (2, 4):  # 96 rows do not split into 32-row units over 2 or 4
         cases[n].append(("uneven", kw, _weights(kw, 8)[2], _frame(shape, 8), "f32"))
+    for i, (name, (kw, shape, pol)) in enumerate(GRID_CASES.items()):
+        params, model, sd = _weights(kw, 10 + i)
+        x = _frame(shape, 10 + i)
+        jpol = None if pol == "f32" else JaxPolicy(dtype=jnp.bfloat16, precision=None,
+                                                   use_pallas=True)
+        jax_out[name] = np.asarray(jax_sharded(params, jnp.asarray(x), JaxConfig(**kw),
+                                               mesh=_grid_mesh(*GRID), policy=jpol,
+                                               batch_axis="data"), np.float32)
+        with torch.no_grad():
+            single[name] = m2trans_apply(model, torch.from_numpy(x), Config(**kw),
+                                         ComputePolicy()).numpy()
+        cases[4].append((name, kw, sd, x, pol, GRID))
+    kw, shape = GRID_UNEVEN
+    cases[4].append(("2d_uneven", kw, _weights(kw, 9)[2], _frame(shape, 9), "f32", GRID))
     port = {2: run_ranks(torch_ranks.spatial_rank, 2,
                          (cases[2], ("streaming", "auto_eval", "refusals"))),
-            4: run_ranks(torch_ranks.spatial_rank, 4, (cases[4], ("refusals",)))}
+            4: run_ranks(torch_ranks.spatial_rank, 4, (cases[4], ("refusals", "groups")))}
     return jax_out, single, port
 
 
@@ -135,11 +161,50 @@ def test_uneven_height_raises(runs, n):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_mesh_refusals(runs, n):
-    """A mesh larger than the world, and the 2-D (data, space) mesh."""
+    """A 1-D or 2-D mesh larger than the world, and ``batch_axis`` with a
+    1-D mesh."""
     msgs = runs[2][n][0]["refusals"]
-    assert msgs["too_many"].startswith("ValueError")
-    assert "torch.distributed.run --nproc_per_node" in msgs["too_many"]
-    assert msgs["batch_axis"].startswith("NotImplementedError")
+    for what in ("too_many", "too_many_2d"):
+        assert msgs[what].startswith("ValueError")
+        assert "torch.distributed.run --nproc_per_node" in msgs[what]
+    assert msgs["batch_axis_1d_mesh"].startswith("ValueError")
+    assert "DataSpaceMesh" in msgs["batch_axis_1d_mesh"]
+
+
+@pytest.mark.parametrize("name", list(GRID_CASES))
+def test_data_space_mesh_matches_jax_and_single_device(runs, name):
+    """``batch_axis="data"`` on 4 ranks as a 2 x 2 (data, space) mesh against
+    JAX's on a 2 x 2 mesh of conftest's CPU devices: f32 to 2e-4 (also
+    against the port's single-device forward), bf16 with the kernels' plain
+    versions against JAX's bf16 Pallas forward to mean 2e-2 (the bounds of
+    the 1-D cases above). Every rank holds the whole batch."""
+    jax_out, single, port = runs
+    got = port[4][0][name]
+    assert got.shape == jax_out[name].shape == single[name].shape
+    if GRID_CASES[name][2] == "f32":
+        np.testing.assert_allclose(got, jax_out[name], atol=2e-4)
+        np.testing.assert_allclose(got, single[name], atol=2e-4)
+    else:
+        assert np.abs(got - jax_out[name]).mean() < 2e-2
+    for other in port[4][1:]:
+        np.testing.assert_array_equal(other[name], got)
+
+
+def test_data_space_mesh_uneven_batch_raises(runs):
+    """A batch of 3 over 2 data rows."""
+    for res in runs[2][4]:
+        msg = res["2d_uneven"]
+        assert isinstance(msg, str) and msg.startswith("ValueError")
+        assert "must divide evenly over 2 data rows" in msg
+
+
+def test_one_and_two_d_meshes_do_not_collide(runs):
+    """A 1-D mesh of ranks 0-1 beside a 2 x 2 mesh (rows 0-1 and 2-3,
+    columns 0-2 and 1-3) in one world of 4: each rank sits at (r // 2, r %
+    2), and a sum over each of its groups adds exactly that group's ranks."""
+    got = [res["groups"] for res in runs[2][4]]
+    assert got == [(0, 0, 3.0, 4.0, 3.0), (1, 0, 3.0, 6.0, 3.0),
+                   (0, 1, 7.0, 4.0, None), (1, 1, 7.0, 6.0, None)]
 
 
 def test_streaming_with_mesh_matches_single_device(runs):

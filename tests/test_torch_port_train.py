@@ -332,17 +332,12 @@ def test_train_cli_needs_a_card_unless_cpu(tmp_path, monkeypatch):
         train_cli.main(["--config", "configs/M2Trans_x4.yml"])
 
 
-@pytest.mark.parametrize("option", [{"mesh_data": 2}, {"profile_dir": "prof"}])
+@pytest.mark.parametrize("option", [{"mesh_data": 2}])
 def test_unported_options_raise(option):
-    """profile_dir is not ported; mesh_data 2 is, and needs a world of 2
-    ranks (this process is one)."""
-    if "mesh_data" in option:
-        with pytest.raises(ValueError, match="must equal the number of ranks, 1 "
-                           r"here: launch 2 ranks with python -m torch\.distributed"):
-            Trainer(Config(**option), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Trainer(Config(**option), device="cpu")
+    """mesh_data 2 needs a world of 2 ranks (this process is one)."""
+    with pytest.raises(ValueError, match="must equal the number of ranks, 1 "
+                       r"here: launch 2 ranks with python -m torch\.distributed"):
+        Trainer(Config(**option), device="cpu")
 
 
 @pytest.mark.parametrize("option", [

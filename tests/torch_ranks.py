@@ -43,9 +43,10 @@ def _np(t):
 
 def spatial_rank(rank, n, cases, extras=(), device="cpu"):
     """The sharded forward of every case ``(name, cfg kwargs, state dict,
-    frame, policy name)`` over all ``n`` ranks, on ``device`` (a CUDA rank
-    takes card ``rank % device_count``), and the extra checks named in
-    ``extras``; returns {name: result}."""
+    frame, policy name[, (n_data, n_space)])`` over all ``n`` ranks (with a
+    grid: the 2-D (data, space) mesh, ``batch_axis="data"``), on ``device``
+    (a CUDA rank takes card ``rank % device_count``), and the extra checks
+    named in ``extras``; returns {name: result}."""
     from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
     from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
     from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
@@ -55,13 +56,18 @@ def spatial_rank(rank, n, cases, extras=(), device="cpu"):
     mesh = mesh_lib.space_mesh()
     dev = mesh_lib.init_from_env(device)
     with torch.inference_mode():
-        for name, kw, sd, x, pol in cases:
+        for name, kw, sd, x, pol, *grid in cases:
             cfg = Config(**kw)
             try:
                 model, xd = model_from(cfg, sd).to(dev), torch.from_numpy(x).to(dev)
                 before = [f.launches for f in counters]
-                y = spatial.spatial_sharded_forward(model, xd, cfg, mesh=mesh,
-                                                    policy=POLICIES[pol])
+                if grid:
+                    y = spatial.spatial_sharded_forward(
+                        model, xd, cfg, mesh=mesh_lib.data_space_mesh(*grid[0]),
+                        policy=POLICIES[pol], batch_axis="data")
+                else:
+                    y = spatial.spatial_sharded_forward(model, xd, cfg, mesh=mesh,
+                                                        policy=POLICIES[pol])
                 out[name + "_launches"] = [f.launches - b
                                            for f, b in zip(counters, before)]
                 out[name] = _np(y)
@@ -73,6 +79,8 @@ def spatial_rank(rank, n, cases, extras=(), device="cpu"):
             out["auto_eval"] = _auto_eval()
         if "refusals" in extras:
             out["refusals"] = _refusals(n)
+        if "groups" in extras:
+            out["groups"] = _groups(rank)
     out["loaded"] = reference_loaded()
     return out
 
@@ -134,15 +142,28 @@ def _refusals(n):
     msgs = {}
     for what, fn in (
             ("too_many", lambda: mesh_lib.space_mesh(n + 1)),
-            ("batch_axis", lambda: spatial.spatial_sharded_forward(
-                model, torch.zeros(1, 64, 32, 3), cfg,
+            ("too_many_2d", lambda: mesh_lib.data_space_mesh(2, n)),
+            ("batch_axis_1d_mesh", lambda: spatial.spatial_sharded_forward(
+                model, torch.zeros(2, 64, 32, 3), cfg,
                 mesh=mesh_lib.space_mesh(), batch_axis="data"))):
         try:
             fn()
             msgs[what] = None
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             msgs[what] = f"{type(e).__name__}: {e}"
     return msgs
+
+
+def _groups(rank):
+    """A 1-D mesh of the first 2 ranks beside a 2-D (2, 2) mesh, then a sum
+    of each rank's ``rank + 1`` over every group this rank is in: (its row
+    index, column index, row sum, column sum, 1-D sum or None)."""
+    one_d = mesh_lib.space_mesh(2)
+    grid = mesh_lib.data_space_mesh(2, 2)
+    mine = torch.tensor([float(rank + 1)])
+    return (grid.space.rank, grid.data.rank,
+            float(grid.space.all_reduce_sum(mine)), float(grid.data.all_reduce_sum(mine)),
+            float(one_d.all_reduce_sum(mine)) if one_d.rank >= 0 else None)
 
 
 def tokenizer(texts, max_length, **_):
