@@ -27,9 +27,18 @@ DDP train step of 2 ranks against phase 10's one-process step and the train
 CLI with ``mesh_data: 2``; then (phase 20) the 2-D (data, space) mesh: 4
 ranks sharing the card under gloo as 2 x 2, a batch of 2 x 512x512 over the
 data rows and each image's rows over its row, against the single-device
-forward; last (phase 21) the ``Trainer`` with the C++ loader (built with g++
+forward; then (phase 21) the ``Trainer`` with the C++ loader (built with g++
 in phase 2, beside the kernels), a profiler trace that must name the
-kernels, the TensorBoard panels and the complexity report. Every
+kernels, the TensorBoard panels and the complexity report; last (phase 22)
+the serving forward replayed from a CUDA graph per frame shape
+(``models/graphed.py``) against the eager forward bit for bit (bf16 with the
+kernels at 8x96x96 and 1x512x512, u8 on and off; f32 at 1x256x256), the
+launches its capture counts, a recapture after weights are loaded in place,
+event and device times of eager and replay, the memory its graphs hold,
+phase 6's PNGs (the infer CLI, which replays graphs) against an eager
+``StreamingSR(graphs=False)`` run on the same frames, and ``python -m
+m2trans_tpu_torch.bench`` (its JSON line printed). Phases 1-21 other than
+the CLI of phase 6 run the forward eagerly, as before. Every
 phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
@@ -49,6 +58,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -1173,6 +1183,141 @@ def trainer_phase(dev, tcfg, work) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def graphed_phase(dev, cfg, serve) -> dict:
+    """Phase 22: the serving forward replayed from a CUDA graph per input
+    shape (``models/graphed.py``), against the eager forward bit for bit;
+    the launches its capture counts; a recapture after weights are loaded in
+    place; event and device times of eager and replay; phase 6's PNGs, which
+    the infer CLI served from graphs, against an eager stream of the same
+    frames; ``python -m m2trans_tpu_torch.bench``. Returns the launches
+    counted in the captures of the flagship shape."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.graphed import (
+        COUNTED,
+        GraphedForward,
+        serving_forward,
+    )
+    from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans
+    from m2trans_tpu_torch.parallel.streaming import StreamingSR
+    from m2trans_tpu_torch.train.checkpoint import load_params_any
+
+    kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
+    model = init_m2trans(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(22)
+    xs = {shape: torch.rand(shape, generator=gen).to(dev)
+          for shape in ((8, 96, 96, 3), (1, 512, 512, 3), (1, 256, 256, 3))}
+    parts, times = [], {}
+    launches = None
+    with torch.inference_mode():
+        for u8 in (False, True):
+            gf = GraphedForward(model, cfg, kern, output_u8=u8)
+            for shape in ((8, 96, 96, 3), (1, 512, 512, 3)):
+                x = xs[shape]
+                for f in COUNTED.values():
+                    f.launches = 0
+                got = gf(x).clone()
+                counted = {k: f.launches for k, f in COUNTED.items()}
+                want = serving_forward(model, x, cfg, kern, u8)
+                need(gf.captures == 1 + (shape[0] == 1), f"captures {gf.captures}")
+                need(gf.capture_launches[shape] == {"cftm_branch": 32, "ff_conv": 8,
+                                                    "tail_band": 1},
+                     f"launches in the capture of {shape}: "
+                     f"{gf.capture_launches[shape]}")
+                # the side-stream run and the capture; a replay counts none
+                need(counted == {k: 2 * n for k, n in gf.capture_launches[shape].items()},
+                     f"launches around the first call of {shape}: {counted}")
+                need(got.dtype == want.dtype and torch.equal(got, want),
+                     f"replay vs eager {shape} u8={u8}: max "
+                     f"{errs(got, want)[0]}")
+                need(torch.equal(gf(x), want), f"second replay {shape} u8={u8}")
+                if shape[0] == 8 and not u8:
+                    launches = gf.capture_launches[shape]
+                    need(torch.isfinite(got).all().item(), "replay not finite")
+            parts.append(f"u8={u8} 8x96x96 and 1x512x512 equal")
+        # the f32 policy (TF32 off inside the captured forward)
+        gf32 = GraphedForward(model, cfg, ComputePolicy())
+        x = xs[(1, 256, 256, 3)]
+        got = gf32(x).clone()
+        want = serving_forward(model, x, cfg, ComputePolicy(), False)
+        f32_max = errs(got, want)[0]
+        need(torch.equal(got, want), f"f32 replay vs eager at 1x256x256: max {f32_max}")
+        parts.append("f32 1x256x256 equal")
+        # weights loaded in place after capture: the next call captures again
+        gf = GraphedForward(model, cfg, kern)
+        x = xs[(8, 96, 96, 3)]
+        before = gf(x).clone()
+        model.load_state_dict(init_m2trans(cfg, seed=1, device=dev).state_dict())
+        got = gf(x).clone()
+        want = serving_forward(model, x, cfg, kern, False)
+        need(gf.captures == 2 and torch.equal(got, want)
+             and not torch.equal(got, before),
+             f"after load_state_dict: captures {gf.captures}, replay vs fresh "
+             f"eager max {errs(got, want)[0]}")
+        model.load_state_dict(init_m2trans(cfg, seed=0, device=dev).state_dict())
+        parts.append("recaptured after load_state_dict, equal to fresh eager")
+        # the memory the two graphs of one runner hold: reserved by the
+        # allocator before and after their captures, its free cache released
+        del gf, gf32
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = [torch.cuda.memory_reserved()]
+        gf = GraphedForward(model, cfg, kern)
+        for shape in ((8, 96, 96, 3), (1, 512, 512, 3)):
+            gf(xs[shape])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        for shape in ((8, 96, 96, 3), (1, 512, 512, 3)):
+            x = xs[shape]
+            times[shape] = (
+                time_ms(lambda: serving_forward(model, x, cfg, kern, False)),
+                time_ms(lambda: gf(x)),
+                device_ms(lambda: serving_forward(model, x, cfg, kern, False)),
+                device_ms(lambda: gf(x)))
+    print("phase 22 graphed forward, replay vs eager bit for bit: "
+          + "; ".join(parts) + f"; launches in one capture {launches}; ms a "
+          "forward (events, median of 20 | device time from the profiler), eager "
+          "vs replay: " + "; ".join(
+              f"{'x'.join(map(str, k[:3]))} {v[0]:.3f} | {fmt_ms(v[2])} vs "
+              f"{v[1]:.3f} | {fmt_ms(v[3])}" for k, v in times.items())
+          + f"; memory_reserved MiB before / after capturing 8x96x96 and "
+          f"1x512x512 {reserved[0] / 2**20:.1f} / {reserved[1] / 2**20:.1f}")
+
+    # phase 6's PNGs, served by the infer CLI from graphs, against an eager
+    # stream of the same frames through the model as the CLI loads it
+    pt, frames = os.path.join(serve, "model_x4.pt"), os.path.join(serve, "frames")
+    cli_cfg = load_config(os.path.join(ROOT, CONFIG), overrides={"model_path": pt})
+    eager = StreamingSR(load_params_any(pt, cli_cfg, device=dev), cli_cfg,
+                        depth=1, graphs=False)
+    need(eager.graphed is None, "StreamingSR(graphs=False) made a graph")
+    names = sorted(os.listdir(frames))
+    lr = []
+    for name in names:
+        with Image.open(os.path.join(frames, name)) as img:
+            lr.append(np.asarray(img.convert("RGB"), np.float32)[None] / 255.0)
+    for name, sr in zip(names, eager.stream(lr)):
+        want = np.clip(sr[0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        for depth in (1, 2):
+            with Image.open(os.path.join(serve, f"out_{depth}", name)) as img:
+                need(np.array_equal(np.asarray(img), want),
+                     f"infer --depth {depth} {name}: graphed PNG != eager stream")
+    print(f"phase 22 infer CLI (phase 6, graphs, depth 1 and 2): its {len(names)} "
+          f"PNGs equal an eager StreamingSR(graphs=False) run's")
+
+    res = subprocess.run([sys.executable, "-m", "m2trans_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    need(res.returncode == 0, f"bench exited {res.returncode}:\n{res.stderr}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    need(line.get("method") == "cuda_graph_slope" and line.get("value", 0) > 0
+         and line.get("baseline_mps", 0) > 0, f"bench line {line}")
+    print(json.dumps(line))
+    return launches
+
+
 def run() -> dict:
     import torch
 
@@ -1314,41 +1459,50 @@ def run() -> dict:
 
         work = os.path.join(ROOT, "build", "chip_smoke")
         os.makedirs(work, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=work) as tmp:
-            pt = os.path.join(tmp, "model_x4.pt")
-            torch.save({"model_state_dict": reference_state_dict(model, True)}, pt)
-            frames, out = os.path.join(tmp, "frames"), os.path.join(tmp, "out")
-            os.makedirs(frames)
-            rng = np.random.default_rng(0)
-            shapes = {"f0.png": (96, 96), "f1.png": (96, 96), "f2.png": (96, 96),
-                      "f3.png": (100, 76)}
-            from PIL import Image
+        # kept for phase 22, which holds the PNGs to an eager stream
+        serve = os.path.join(work, "serve")
+        shutil.rmtree(serve, ignore_errors=True)
+        pt = os.path.join(serve, "model_x4.pt")
+        frames = os.path.join(serve, "frames")
+        os.makedirs(frames)
+        torch.save({"model_state_dict": reference_state_dict(model, True)}, pt)
+        rng = np.random.default_rng(0)
+        shapes = {"f0.png": (96, 96), "f1.png": (96, 96), "f2.png": (96, 96),
+                  "f3.png": (100, 76)}
+        from PIL import Image
 
-            for name, hw in shapes.items():
-                Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
-                    os.path.join(frames, name))
-            cmd = [sys.executable, "-m", "m2trans_tpu_torch.infer", "--config",
-                   CONFIG, "--model_path", pt, "--input", frames, "--output", out]
-            reports = {}
-            for depth in (1, 2):  # each frame waited for / two frames in flight
-                res = subprocess.run(cmd + ["--depth", str(depth)], cwd=ROOT,
-                                     capture_output=True, text=True, timeout=600)
-                need(res.returncode == 0,
-                     f"infer --depth {depth} exited {res.returncode}:\n{res.stderr}")
-                reports[depth] = json.loads(res.stdout.strip().splitlines()[-1])
-            report = reports[2]
+        for name, hw in shapes.items():
+            Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+                os.path.join(frames, name))
+        # the CLI replays a graph per frame shape: the warm-up captures
+        # 96x96, the stream 100x76; phase 22 holds the PNGs to an eager run
+        cmd = [sys.executable, "-m", "m2trans_tpu_torch.infer", "--config",
+               CONFIG, "--model_path", pt, "--input", frames]
+        reports = {}
+        for depth in (1, 2):  # each frame waited for / two frames in flight
+            res = subprocess.run(cmd + ["--output", os.path.join(serve, f"out_{depth}"),
+                                        "--depth", str(depth)], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=600)
+            need(res.returncode == 0,
+                 f"infer --depth {depth} exited {res.returncode}:\n{res.stderr}")
+            reports[depth] = report = json.loads(res.stdout.strip().splitlines()[-1])
+            need(report.get("frames") == 4, f"report {report}")
+            graphs = report.get("cuda_graphs", {})
+            per_capture = graphs.get("launches_per_capture", {})
+            need(graphs.get("captures") == 1 and graphs.get("replays") == 4
+                 and sorted(per_capture) == ["1x100x76x3", "1x96x96x3"]
+                 and all(n == {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
+                         for n in per_capture.values()),
+                 f"infer --depth {depth} report {report}")
             for name, (h, w) in shapes.items():
-                with Image.open(os.path.join(out, name)) as img:
+                with Image.open(os.path.join(serve, f"out_{depth}", name)) as img:
                     size = (img.height, img.width, len(img.getbands()))
                 need(size == (4 * h, 4 * w, 3), f"{name}: shape {size}")
-            need(report.get("frames") == 4, f"report {report}")
-            need(report["kernel_launches"] == {"cftm_branch": 32 * 4,
-                                               "ff_conv": 8 * 4, "tail_band": 4},
-                 f"infer kernel launches {report['kernel_launches']}")
-        print(f"phase 6 infer CLI: 4 frames (3x 96x96, 1x 100x76) -> x4 PNGs; "
-              f"p50 ms at depth 1 / depth 2 {reports[1]['p50_ms']} / "
-              f"{reports[2]['p50_ms']}, fps {reports[1]['fps']} / {reports[2]['fps']}; "
-              f"report at depth 2 {json.dumps(report)}")
+        print(f"phase 6 infer CLI (a CUDA graph per frame shape): 4 frames (3x 96x96, "
+              f"1x 100x76) -> x4 PNGs; p50 / p99 ms at depth 1 "
+              f"{reports[1]['p50_ms']} / {reports[1]['p99_ms']}, depth 2 "
+              f"{reports[2]['p50_ms']} / {reports[2]['p99_ms']}, fps {reports[1]['fps']}"
+              f" / {reports[2]['fps']}; report at depth 2 {json.dumps(reports[2])}")
 
         # 7. times, CUDA events, median of 20 after warm-up
         k1_ms, k1_plain_ms, k1_bound, k1_dev = {}, {}, {}, {}
@@ -1847,6 +2001,11 @@ def run() -> dict:
     # launches more slowly)
     trainer_phase(dev, tcfg, work)
 
+    # 22. the serving forward replayed from a CUDA graph a frame shape, the
+    # infer CLI with graphs, the bench (the launch counts are set to 0 just
+    # before each capture and read just after)
+    graph_launches = graphed_phase(dev, cfg, serve)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -1872,6 +2031,7 @@ def run() -> dict:
          "resident_by_level": dict(enumerate(resident)),
          "launches_sharded_forward_per_rank": par["sharded_forward"][0],
          "launches_2d_mesh_per_rank": grid["launches"][0],
+         "launches_graph_capture": graph_launches["cftm_branch"],
          "launches_ddp_step_per_rank": par["ddp_step"][0]},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
@@ -1880,6 +2040,7 @@ def run() -> dict:
          "device_ms": k2_dev, "device_ms_1x512x512": k2_frame_dev,
          "launches_sharded_forward_per_rank": par["sharded_forward"][2],
          "launches_2d_mesh_per_rank": grid["launches"][2],
+         "launches_graph_capture": graph_launches["tail_band"],
          "launches_ddp_step_per_rank": par["ddp_step"][2]},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
@@ -1908,6 +2069,7 @@ def run() -> dict:
          "device_ms": k3_dev[0], "library_device_ms": k3_dev[2],
          "launches_sharded_forward_per_rank": par["sharded_forward"][1],
          "launches_2d_mesh_per_rank": grid["launches"][1],
+         "launches_graph_capture": graph_launches["ff_conv"],
          "launches_ddp_step_per_rank": par["ddp_step"][1]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",

@@ -13,6 +13,14 @@ Usage:
 present; the CPU runs only when asked for (``--device cpu``), with the
 kernels' plain versions.
 
+On the card, one device and no mesh, every frame shape's forward is
+captured as a CUDA graph on its first frame and replayed after
+(``parallel/streaming.py``). The kernel wrappers count launches when they
+are captured, not when a graph replays them, so the report then gives the
+captures, the replays and the launches of one capture (by frame shape), not
+launches by frame. On the CPU and with a mesh the forward runs launch by
+launch and the report gives the kernel launches of the run.
+
 Spatial sharding: ``--mesh-space N`` > 1 shards every frame's rows over N
 ranks, launched as ``python -m torch.distributed.run --nproc_per_node N -m
 m2trans_tpu_torch.infer ... --mesh-space N`` (each rank on
@@ -60,10 +68,8 @@ def main(argv=None) -> None:
     from PIL import Image
 
     from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.graphed import COUNTED
     from m2trans_tpu_torch.models.m2trans import policy_from_config
-    from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
-    from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
-    from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
     from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.parallel.spatial import auto_space_mesh_multi
     from m2trans_tpu_torch.parallel.streaming import StreamingSR
@@ -104,13 +110,13 @@ def main(argv=None) -> None:
     writer = rank == 0
     runner = StreamingSR(model, cfg, mesh=mesh, policy=policy, output_u8=args.u8,
                          depth=args.depth)
+    graphed = runner.graphed
     runner.warmup(frames[0].shape)
     if args.output and writer:
         os.makedirs(args.output, exist_ok=True)
 
-    counted = {"cftm_branch": cftm_branch, "ff_conv": ff_conv,
-               "tail_band": tail_band_fused}
-    launches0 = {k: f.launches for k, f in counted.items()}
+    launches0 = {k: f.launches for k, f in COUNTED.items()}
+    counts0 = (graphed.captures, graphed.replays) if graphed else None
     t0 = time.perf_counter()
     n_px = 0
     for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
@@ -130,12 +136,19 @@ def main(argv=None) -> None:
            for k, v in runner.latency_percentiles().items()},
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
-        "kernel_launches": {k: f.launches - launches0[k]
-                            for k, f in counted.items()},
         "mesh_space": mesh.n if mesh is not None else 1,
         "ranks": n_ranks,
         "backend": mesh_lib.backend(),
     }
+    if graphed:
+        report["cuda_graphs"] = {
+            "captures": graphed.captures - counts0[0],
+            "replays": graphed.replays - counts0[1],
+            "launches_per_capture": {"x".join(map(str, shape)): n for shape, n
+                                     in graphed.capture_launches.items()}}
+    else:
+        report["kernel_launches"] = {k: f.launches - launches0[k]
+                                     for k, f in COUNTED.items()}
     if writer:
         print(json.dumps(report))
     if n_ranks > 1:

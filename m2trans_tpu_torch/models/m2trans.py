@@ -40,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -223,15 +223,22 @@ def _no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def param_key(p: torch.Tensor) -> Tuple[int, int]:
+    """``(data_ptr, version)`` of a parameter: what is kept across calls
+    from its values is stale when either differs. An inference tensor has no
+    version counter and keys by 0, so an in-place write into one (possible
+    only under ``torch.inference_mode``) is not seen."""
+    return p.data_ptr(), 0 if p.is_inference() else p._version
+
+
 def _prepared(mod: nn.Module, slot: str, dtype, params, make):
     """``make(*params)``, a kernel operand laid out from a module's
     parameters. Where a gradient is wanted it is built through autograd;
     otherwise it is kept on the module between calls (not in its
-    state_dict) and rebuilt when a parameter's storage or version changes."""
+    state_dict) and rebuilt when a parameter's :func:`param_key` changes."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return make(*params)
-    key = (dtype, *((p.data_ptr(), 0 if p.is_inference() else p._version)
-                    for p in params))
+    key = (dtype, *(param_key(p) for p in params))
     hit = mod.__dict__.get(slot)
     if hit is None or hit[0] != key:
         hit = mod.__dict__[slot] = (key, make(*(p.detach() for p in params)))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from m2trans_tpu_torch.ops import on_device
 from m2trans_tpu_torch.ops.conv import gelu_exact
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle_fast
 
@@ -113,10 +114,12 @@ def last_conv_weight(p: Params, scale: int) -> torch.Tensor:
 def expand_phase_kernel(w3: torch.Tensor, scale: int) -> torch.Tensor:
     """HWIO (3, 3, nf, 3) -> the selector-expanded (3, 3, P*nf, P*3) K.
     Each entry of K is a single entry of w3 (or 0), so K is exact in any
-    dtype."""
+    dtype. The selector is copied to the device once (``on_device``): a copy
+    from pageable host memory on every call would also make the plain bf16
+    tail impossible to capture in a CUDA graph."""
     P = scale * scale
     nf = w3.shape[2]
-    M = torch.as_tensor(_k_selector(scale), device=w3.device).to(w3.dtype)
+    M = on_device(_k_selector, scale, device=w3.device).to(w3.dtype)
     return torch.einsum("abpdeq,deio->abpiqo", M, w3).reshape(
         3, 3, P * nf, P * 3)
 

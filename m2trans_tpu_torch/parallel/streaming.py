@@ -22,6 +22,21 @@ device timestamp (against an event recorded at the start of the stream), so
 it does not grow by what the consumer does before it asks for the frame. On
 a CPU model nothing is pinned and no event is used (the latency ends when
 the frame is handed out); frames and their order are the same.
+
+On a CUDA model without a mesh the forward is a CUDA graph per frame shape
+(:class:`~m2trans_tpu_torch.models.graphed.GraphedForward`), captured the
+first time a shape is seen (:meth:`StreamingSR.warmup` captures, as the JAX
+``warmup`` compiles) and replayed after: the slot's pinned input is copied
+into the graph's static input without a wait, the graph is replayed, and its
+static output is copied into the slot's pinned output without a wait. The
+copies, the replay and the event are all enqueued on the one current
+stream, in that order, so at ``depth`` > 1 the next frame's copy into the
+static input runs after the previous replay, and the next replay after the
+previous copy out: the static buffers shared by the in-flight frames are
+safe without further synchronisation. With a mesh the path stays eager:
+its collectives under gloo stage through host memory, which a CUDA graph
+cannot capture. ``graphs=False`` runs the eager forward too (the tests and
+``chip_smoke.py`` compare the two).
 """
 
 from __future__ import annotations
@@ -34,11 +49,8 @@ import numpy as np
 import torch
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.models.m2trans import (
-    ComputePolicy,
-    M2Trans,
-    m2trans_apply_microbatched,
-)
+from m2trans_tpu_torch.models.graphed import GraphedForward, served, serving_forward
+from m2trans_tpu_torch.models.m2trans import ComputePolicy, M2Trans
 from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
 
@@ -56,6 +68,8 @@ class StreamingSR:
       depth: frames in flight.
       output_u8: quantize SR frames to uint8 (round(x*255)) on the device
         before the copy back, 4x fewer bytes than f32.
+      graphs: on a CUDA model without a mesh, replay a CUDA graph per frame
+        shape (``self.graphed``); False runs the forward eagerly.
     """
 
     @staticmethod
@@ -64,7 +78,7 @@ class StreamingSR:
 
     def __init__(self, model: M2Trans, cfg: Config, *, mesh=None,
                  policy: Optional[ComputePolicy] = None, depth: int = 2,
-                 output_u8: bool = False):
+                 output_u8: bool = False, graphs: bool = True):
         if mesh is not None and not isinstance(mesh, SpaceMesh):
             raise TypeError(f"StreamingSR: mesh must be a SpaceMesh "
                             f"(parallel.mesh.space_mesh), got {type(mesh).__name__}")
@@ -77,17 +91,17 @@ class StreamingSR:
         self.output_u8 = output_u8
         self.latencies_s = []
         self._slots = {}  # (slot, frame shape) -> pinned (input, output)
+        self.graphed = (GraphedForward(model, cfg, self.policy, output_u8=output_u8)
+                        if graphs and mesh is None and self.device.type == "cuda"
+                        else None)
 
     @torch.inference_mode()
     def _fwd(self, x: torch.Tensor) -> torch.Tensor:
         if self.mesh is not None and self.mesh.rank >= 0:
-            y = spatial_sharded_forward(self.model, x, self.cfg, mesh=self.mesh,
-                                        policy=self.policy)
-        else:
-            y = m2trans_apply_microbatched(self.model, x, self.cfg, self.policy)
-        if self.output_u8:
-            return torch.round(y.float() * 255.0).to(torch.uint8)
-        return y.float()
+            return served(spatial_sharded_forward(
+                self.model, x, self.cfg, mesh=self.mesh, policy=self.policy),
+                self.output_u8)
+        return serving_forward(self.model, x, self.cfg, self.policy, self.output_u8)
 
     def _pinned(self, slot: int, shape: Tuple[int, ...]):
         """The slot's pinned host buffers for frames of ``shape``."""
@@ -103,14 +117,18 @@ class StreamingSR:
 
     def _submit(self, frames: np.ndarray, slot: int):
         """Enqueue one batch of frames; returns what :meth:`_take` needs.
-        CUDA: pinned upload, forward, copy back into the slot's pinned
-        buffer, all asynchronous, then an event. CPU: the result itself."""
+        CUDA: pinned upload, forward (a graph replay, or eager), copy back
+        into the slot's pinned buffer, all asynchronous, then an event. CPU:
+        the result itself."""
         frames = np.asarray(frames, np.float32)
         if self.device.type != "cuda":
             return self._fwd(torch.from_numpy(frames)), None
         pin_in, pin_out = self._pinned(slot, frames.shape)
         pin_in.copy_(torch.from_numpy(frames))
-        y = self._fwd(pin_in.to(self.device, non_blocking=True))
+        if self.graphed is not None:
+            y = self.graphed(pin_in)
+        else:
+            y = self._fwd(pin_in.to(self.device, non_blocking=True))
         pin_out.copy_(y, non_blocking=True)
         done = torch.cuda.Event(enable_timing=True)
         done.record(torch.cuda.current_stream(self.device))
@@ -126,6 +144,8 @@ class StreamingSR:
         return out.numpy().copy()
 
     def warmup(self, frame_shape: Tuple[int, ...]) -> None:
+        """Runs one batch of ``frame_shape``: on the graph path it captures
+        that shape's graph."""
         self._take(*self._submit(np.zeros(frame_shape, np.float32), 0))
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:

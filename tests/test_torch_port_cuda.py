@@ -19,7 +19,8 @@ L = 1, to a cluster at L = 2), K2's 8x16 tile walk and K3's persistent grid
 have cases of their own at shapes that do not fill their rounds or tiles; so
 have K1b's bodies (a window to four warps at L = 0 / L = 1, to a cluster at
 L = 2, the general body at base width 32) and K2b's roles, each also run
-twice and held to the same bits.
+twice and held to the same bits. The serving forward replayed from a CUDA
+graph (``models/graphed.py``) is held to the eager forward's bits.
 """
 
 import numpy as np
@@ -53,6 +54,7 @@ from m2trans_tpu_torch.ops.kernels.tail_band import (
     tail_band_plain,
     tail_band_plain_vjp,
 )
+from m2trans_tpu_torch.models.graphed import GraphedForward, serving_forward
 from m2trans_tpu_torch.parallel.streaming import StreamingSR
 from m2trans_tpu_torch.train.evaluate import evaluate_dataset
 from m2trans_tpu_torch.train.loop import make_optimizer, make_train_step
@@ -521,6 +523,101 @@ def test_streaming_depth_2_pipelines(dev):
         np.testing.assert_array_equal(a, b)
     assert min(secs[2]) <= 1.25 * min(secs[1]), secs
     assert min(p50[2]) <= 1.25 * min(p50[1]), p50
+
+
+def _graphed_case(dev, n_blocks=2):
+    cfg = Config(scale=4, n_feats=64, n_blocks=n_blocks)
+    return cfg, init_m2trans(cfg, seed=0, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output_u8", [False, True])
+@pytest.mark.parametrize("shape", [(8, 96, 96, 3), (1, 256, 256, 3)])
+def test_graph_replay_equals_eager_bit_for_bit(dev, shape, output_u8):
+    """bf16 with the kernels: the replayed graph gives the eager forward's
+    bits, on its first call (capture, then replay) and after; the capture
+    itself counts 4 K1, 1 K3 and 1 K2 launches a block."""
+    cfg, model = _graphed_case(dev)
+    kern = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    gf = GraphedForward(model, cfg, kern, output_u8=output_u8)
+    with torch.inference_mode():
+        first = gf(x).clone()
+        want = serving_forward(model, x, cfg, kern, output_u8)
+        again = gf(x)
+        assert torch.equal(first, want) and torch.equal(again, want)
+    assert (gf.captures, gf.replays) == (1, 2)
+    assert gf.capture_launches[shape] == {"cftm_branch": 8, "ff_conv": 2,
+                                          "tail_band": 1}
+
+
+@pytest.mark.cuda
+def test_graph_of_a_new_shape_is_captured_on_its_first_call(dev):
+    cfg, model = _graphed_case(dev, n_blocks=1)
+    kern = ComputePolicy(torch.bfloat16, True)
+    gf = GraphedForward(model, cfg, kern)
+    gen = torch.Generator().manual_seed(2)
+    a = torch.rand(2, 64, 96, 3, generator=gen).to(dev)
+    b = torch.rand(1, 40, 36, 3, generator=gen).to(dev)
+    with torch.inference_mode():
+        for x, captures in ((a, 1), (a, 1), (b, 2), (a, 2), (b, 2)):
+            got = gf(x)
+            assert gf.captures == captures
+            assert torch.equal(got, serving_forward(model, x, cfg, kern, False))
+
+
+@pytest.mark.cuda
+def test_weights_loaded_in_place_force_a_new_capture(dev):
+    """After load_state_dict into the captured model's parameters the next
+    call captures again and gives a fresh eager forward's output."""
+    cfg, model = _graphed_case(dev, n_blocks=1)
+    kern = ComputePolicy(torch.bfloat16, True)
+    gf = GraphedForward(model, cfg, kern)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3)).to(dev)
+    with torch.inference_mode():
+        before = gf(x).clone()
+    model.load_state_dict(init_m2trans(cfg, seed=1, device=dev).state_dict())
+    with torch.inference_mode():
+        got = gf(x).clone()
+        want = serving_forward(model, x, cfg, kern, False)
+    assert gf.captures == 2
+    assert torch.equal(got, want) and not torch.equal(got, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16 plain", "f32"])
+def test_graph_of_the_other_policies_equals_eager(dev, policy):
+    """The policies without the kernels are captured too: bf16's plain tail
+    copies its phase selector to the card once (``ops.on_device``), not on
+    every call; f32 captures with TF32 off."""
+    cfg, model = _graphed_case(dev, n_blocks=1)
+    pol = (ComputePolicy(torch.bfloat16, False) if policy == "bf16 plain"
+           else ComputePolicy())
+    gf = GraphedForward(model, cfg, pol)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        got = gf(x).clone()
+        assert torch.equal(got, serving_forward(model, x, cfg, pol, False))
+    assert gf.capture_launches[tuple(x.shape)] == {"cftm_branch": 0, "ff_conv": 0,
+                                                   "tail_band": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_streaming_with_graphs_yields_the_eager_frames(dev, depth):
+    """StreamingSR on a CUDA model replays a graph per frame shape: its
+    frames equal the eager stream's at depth 1 and 2, frame shapes mixed."""
+    cfg, model = _graphed_case(dev)
+    frames = [np.random.default_rng(i).uniform(0, 1, (1, 96 - 32 * (i % 2), 96, 3))
+              .astype(np.float32) for i in range(6)]
+    graphs = StreamingSR(model, cfg, depth=depth)
+    eager = StreamingSR(model, cfg, depth=depth, graphs=False)
+    assert graphs.graphed is not None and eager.graphed is None
+    got = list(graphs.stream(frames, collect_stats=True))
+    want = list(eager.stream(frames))
+    assert (graphs.graphed.captures, graphs.graphed.replays) == (2, 6)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
