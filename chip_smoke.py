@@ -29,7 +29,7 @@ ranks sharing the card under gloo as 2 x 2, a batch of 2 x 512x512 over the
 data rows and each image's rows over its row, against the single-device
 forward; then (phase 21) the ``Trainer`` with the C++ loader (built with g++
 in phase 2, beside the kernels), a profiler trace that must name the
-kernels, the TensorBoard panels and the complexity report; last (phase 22)
+kernels, the TensorBoard panels and the complexity report; then (phase 22)
 the serving forward replayed from a CUDA graph per frame shape
 (``models/graphed.py``) against the eager forward bit for bit (bf16 with the
 kernels at 8x96x96 and 1x512x512, u8 on and off; f32 at 1x256x256), the
@@ -37,8 +37,18 @@ launches its capture counts, a recapture after weights are loaded in place,
 event and device times of eager and replay, the memory its graphs hold,
 phase 6's PNGs (the infer CLI, which replays graphs) against an eager
 ``StreamingSR(graphs=False)`` run on the same frames, and ``python -m
-m2trans_tpu_torch.bench`` (its JSON line printed). Phases 1-21 other than
-the CLI of phase 6 run the forward eagerly, as before. Every
+m2trans_tpu_torch.bench`` (its JSON line printed); last (phase 23) the
+train step replayed from a CUDA graph (``train/graphed.py``) against the
+eager step bit for bit over 3 steps (the x4 L1 step in bf16 with the
+kernels, the shipped yml's f32 step, the recipe's step with MedCLIP f32),
+the launches its capture counts, event, device and host ms eager vs
+replay, the memory its captures hold, the Trainer's steps/s with and
+without graphs and the train CLI's, and the eval forward's graphs: the
+eval's s/frame split into reads, forward and metrics, eager and replayed,
+and the eval CLI's lines against an eager evaluation. The CLIs and
+Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
+run them on one card; the steps whose launches are counted or held against
+the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
 phase prints one line and the first failure exits non-zero. The line
 before the last is the JSON kernel report (K1's, K1b's and K1n's numbers
 are one CFTM's four launches, levels 0, 1, 2, 2; ``bound_ms`` is the larger
@@ -128,6 +138,17 @@ def errs(a, b):
     return float(d.max()), float(d.mean())
 
 
+def is_device_work(ev) -> bool:
+    """A profiler event that is device work: a kernel, copy or memset, not
+    a host op and not the device-side span of a ``record_function`` range
+    (``Optimizer.step#Adam.step``, ``m2t::device_step``), which would count
+    the kernels inside it twice."""
+    import torch
+
+    return (ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False))
+
+
 def device_ms(fn, n: int = 20, warm: int = 3, copies: bool = False):
     """Device time of one call of ``fn``: the sum over its kernels from
     torch.profiler (CUPTI) over ``n`` calls, so host launch overhead and the
@@ -145,7 +166,7 @@ def device_ms(fn, n: int = 20, warm: int = 3, copies: bool = False):
         torch.cuda.synchronize()
     total = copy = 0.0
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if is_device_work(ev):
             us = getattr(ev, "device_time_total", None)
             us = ev.cuda_time_total if us is None else us
             total += us
@@ -392,7 +413,7 @@ def profile_call(fn, n: int = 2, warm: int = 1) -> dict:
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if is_device_work(ev):
             us = getattr(ev, "device_time_total", None)
             kernels.append((ev.cuda_time_total if us is None else us, ev.count, ev.key))
     total = sum(k[0] for k in kernels)
@@ -429,7 +450,7 @@ def profile_split(fn) -> str:
              "K1b general": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0, "reduce": 0.0,
              "other": 0.0}
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if not is_device_work(ev):
             continue  # host ops; their device time is their kernels'
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -510,9 +531,9 @@ def semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work,
     caps = {"input_ids": ids, "attention_mask": mask}
     ccfg = tcfg.replace(lambda_clip=0.01)
 
-    def clip_model(c, fn):
+    def clip_model(c, fn):  # eager: its launches are counted a step
         m = init_m2trans(c, seed=0, device=dev)
-        return m, make_train_step(c, m, make_optimizer(c, m), fn)
+        return m, make_train_step(c, m, make_optimizer(c, m), fn, graphs=False)
 
     def clip_step(st):  # the same crop offsets every call
         return st(lr_b, hr_b, captions=caps, rng=np.random.default_rng(18))
@@ -1101,8 +1122,9 @@ class PanelWriter:
 def trainer_phase(dev, tcfg, work) -> None:
     """Phase 21: the ``Trainer`` in this process with the default
     ``native_loader`` (the C++ loader) on a synthetic US1K tree, one epoch
-    of 12 steps of the flagship bf16 + kernels with ``profile_dir`` (the
-    trace of steps 6-10 must name K1's, K1b's, K2's, K2b's and K3's kernels)
+    of 12 steps of the flagship bf16 + kernels, replayed from a CUDA graph,
+    with ``profile_dir`` (the trace of steps 6-10, replays, must name K1's,
+    K1b's, K2's, K2b's and K3's kernels)
     and a recording writer (one train panel of 384x1152x3 uint8 whose SR
     third is the kernel forward of its frame, one eval panel), then the
     complexity report."""
@@ -1149,10 +1171,15 @@ def trainer_phase(dev, tcfg, work) -> None:
             sys.stdout.log.close()
         steps = trainer.steps_per_epoch
         bwd = (cftm_branch_bwd.launches, tail_band_bwd.launches)
+        runner = trainer.train_step.graphed
         need(loader_kind is NativeTrainLoader,
              f"the Trainer's loader is {loader_kind.__name__}, not the C++ loader")
-        need(steps >= 12 and bwd == (32 * steps, steps),
-             f"{steps} steps launched K1b / K2b {bwd}")
+        # the steps replay graphs: the wrappers count each capture's
+        # side-stream run and the capture, not the replays
+        need(runner is not None and runner.replays == steps >= 12
+             and bwd == (64 * runner.captures, 2 * runner.captures),
+             f"{steps} steps, graphs {runner and (runner.captures, runner.replays)}, "
+             f"launched K1b / K2b {bwd}")
         traces = os.listdir(prof_dir)
         need(traces == ["trace_rank0.json"], f"profile_dir holds {traces}")
         trace_path = os.path.join(prof_dir, traces[0])
@@ -1174,8 +1201,9 @@ def trainer_phase(dev, tcfg, work) -> None:
         f"complexity report {report!r}")
     psnr = [ln for ln in buf.getvalue().splitlines() if "PSNR/SSIM" in ln]
     print(f"phase 21 Trainer x4 bf16 + kernels with the C++ loader "
-          f"({loader_kind.__name__}), 1 epoch of {steps} steps (2x96x96 -> 384x384): K1b / "
-          f"K2b launches {bwd}; profiler trace of steps 6-10 ({trace_mb:.1f} MiB) names "
+          f"({loader_kind.__name__}), 1 epoch of {steps} steps (2x96x96 -> 384x384) "
+          f"replayed from {runner.captures} CUDA graph(s): K1b / K2b launches in the "
+          f"captures {bwd}; profiler trace of steps 6-10 (replays, {trace_mb:.1f} MiB) names "
           + ", ".join(f"{k} ({'/'.join(v)})" for k, v in TRACE_KERNELS.items())
           + f"; panels: train {train_panels[0][1:4]}, its SR third equal to the kernel "
           f"forward of its frame; eval {eval_panels[0][:2]}; scalars {len(writer.scalars)}; "
@@ -1316,6 +1344,299 @@ def graphed_phase(dev, cfg, serve) -> dict:
          and line.get("baseline_mps", 0) > 0, f"bench line {line}")
     print(json.dumps(line))
     return launches
+
+
+TRAIN_KINDS = ("L1 bf16 + kernels", "f32 (shipped yml)", "recipe (MedCLIP f32)")
+
+
+def host_ms(fn, labels, n: int = 5) -> dict:
+    """Host ms a call of ``fn`` spends in each ``record_function`` label,
+    from torch.profiler's CPU view over ``n`` calls (after one warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    got = {ev.key: ev.cpu_time_total / 1e3 / n for ev in prof.key_averages()}
+    return {k: got.get(k) for k in labels}
+
+
+def graphed_train_phase(dev, lr_b, hr_b, work) -> dict:
+    """Phase 23: the train step replayed from a CUDA graph
+    (``train/graphed.py``) at full width, against the eager step: the x4
+    L1 step in bf16 with the kernels (cutmix, cutout and input noise on,
+    drawn anew each step outside the graph), the shipped yml's f32 step and
+    the recipe's step (MedCLIP at its published width, f32, seeded;
+    ``lambda_clip`` 0.01), 3 steps each, losses, parameters and Adam's
+    state bit for bit (or, where two eager runs differ, within PERF.md §2's
+    bound); the launches a capture counts; event and device ms eager vs
+    replay and the host ms of the augmentations and of the device part;
+    ``memory_reserved`` around the captures; the Trainer's steps/s with and
+    without graphs and the train CLI's; then the eval forward's graphs:
+    the eval split into reads, forward and metrics a frame, eager and
+    replayed, the capture's cost, a validation after the weights moved,
+    and ``python -m m2trans_tpu_torch.test``'s lines against the eager
+    evaluation's. Returns the launches counted in the L1 step's capture."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.data.pipeline import create_datasets
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.metrics import fsim, gmsd, sr_eval_metrics
+    from m2trans_tpu_torch.models.m2trans import (
+        init_m2trans,
+        m2trans_apply,
+        policy_from_config,
+    )
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.train.convert import reference_state_dict
+    from m2trans_tpu_torch.train.evaluate import eval_runner, evaluate_all
+    from m2trans_tpu_torch.train.graphed import COUNTED, LOSS_NAMES
+    from m2trans_tpu_torch.train.loop import Trainer, make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    ship = load_config(os.path.join(ROOT, "configs", "M2Trans_x4.yml"))
+    aug = dict(cutmix=True, data_add_noise=True)
+    mcfg = MedCLIPConfig()
+    fn = SemanticLossFn(init_medclip(mcfg, seed=4, device=dev), mcfg,
+                        word_tokenizer(mcfg.text.vocab_size))
+    trng = np.random.default_rng(23)
+    ids = trng.integers(5, mcfg.text.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), np.int32)
+    ids[1, 31:] = mask[1, 31:] = 0
+    caps = {"input_ids": ids, "attention_mask": mask}
+    kinds = {TRAIN_KINDS[0]: (ship.replace(dtype="bfloat16", use_pallas=True, **aug), None),
+             TRAIN_KINDS[1]: (ship, None),
+             TRAIN_KINDS[2]: (ship.replace(dtype="bfloat16", use_pallas=True,
+                                           lambda_clip=0.01, **aug), fn)}
+
+    def make(c, f, graphs):
+        m = init_m2trans(c, seed=0, device=dev)
+        opt = make_optimizer(c, m)
+        return m, opt, make_train_step(c, m, opt, f, graphs=graphs)
+
+    def call(st, f, rng):
+        return st(lr_b, hr_b, captions=caps if f is not None else None, rng=rng,
+                  do_cutout=True)
+
+    def three(c, f, graphs):
+        """3 steps from init seed 0: [losses, *parameters, *Adam's state]."""
+        m, opt, st = make(c, f, graphs)
+        losses = []
+        for i in range(3):
+            aux = call(st, f, np.random.default_rng(230 + i))
+            losses.append(torch.stack([aux[k] for k in LOSS_NAMES]))
+        torch.cuda.synchronize()
+        flat = [torch.stack(losses)] + [p.detach().clone() for p in m.parameters()] + [
+            v.clone() for p in m.parameters() if p in opt.state
+            for v in opt.state[p].values()]
+        return flat, st
+
+    checks, times, capture_launches, reserved = {}, {}, {}, {}
+    for name, (c, f) in kinds.items():
+        eager, _ = three(c, f, False)
+        again, _ = three(c, f, False)
+        for g in COUNTED.values():
+            g.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        graphed, st = three(c, f, True)
+        torch.cuda.empty_cache()
+        reserved[name] = (r0, torch.cuda.memory_reserved())
+        counted = {k: g.launches for k, g in COUNTED.items()}
+        runner = st.graphed
+        need(runner is not None and (runner.captures, runner.replays) == (1, 3),
+             f"{name}: graphs {runner and (runner.captures, runner.replays)}")
+        (launches,) = runner.capture_launches.values()
+        k = int(c.use_pallas)
+        want = {"cftm_branch": 32 * k, "ff_conv": 8 * k, "tail_band": k,
+                "cftm_branch_bwd": 32 * k, "tail_band_bwd": k}
+        need(launches == want, f"{name}: a capture counted {launches}, want {want}")
+        need(counted == {key: 2 * v for key, v in launches.items()},
+             f"{name}: launches around the capture {counted} (the side-stream "
+             "step and the capture; a replay counts none)")
+        need(all(torch_isfinite(t) for t in graphed), f"{name}: not finite")
+        exact = all(torch.equal(a, b) for a, b in zip(eager, again))
+        if exact:
+            diff = [i for i, (a, b) in enumerate(zip(graphed, eager)) if not torch.equal(a, b)]
+            need(not diff, f"{name}: replay differs from eager in {len(diff)} tensors "
+                 f"(first {diff[:3]}), eager runs agree")
+            checks[name] = "bit for bit"
+        else:  # each parameter's update over the 3 steps, replay vs eager
+            init = [p.detach() for p in init_m2trans(c, seed=0, device=dev).parameters()]
+            worst = max(rel_l2(a - p0, b - p0) for a, b, p0 in zip(
+                graphed[1:], eager[1:], init) if bool((b - p0).any()))
+            need(worst <= STEP_TOL, f"{name}: two eager runs differ, and the replay's "
+                 f"updates are {worst:.3g} from eager's (> {STEP_TOL})")
+            checks[name] = f"eager itself not deterministic; updates within rel L2 {worst:.3g}"
+        capture_launches[name] = launches
+        m, opt, st_e = make(c, f, False)
+        m2, opt2, st_g = make(c, f, True)
+        rng_e, rng_g = np.random.default_rng(5), np.random.default_rng(5)
+        times[name] = {
+            "event": (time_ms(lambda: call(st_e, f, rng_e), n=20),
+                      time_ms(lambda: call(st_g, f, rng_g), n=20))}
+        del m, opt, st_e, m2, opt2, st_g
+    # the profiler after every event timing (it slows later launches)
+    labels = ("m2t::augment", "m2t::device_step")
+    for name, (c, f) in kinds.items():
+        m, opt, st_e = make(c, f, False)
+        m2, opt2, st_g = make(c, f, True)
+        rng_e, rng_g = np.random.default_rng(6), np.random.default_rng(6)
+        times[name]["device"] = (profile_call(lambda: call(st_e, f, rng_e)),
+                                 profile_call(lambda: call(st_g, f, rng_g)))
+        times[name]["host"] = (host_ms(lambda: call(st_e, f, rng_e), labels),
+                               host_ms(lambda: call(st_g, f, rng_g), labels))
+        del m, opt, st_e, m2, opt2, st_g
+    print("phase 23 graphed train step x4 (n_feats 64, 8 blocks), 2x96x96 -> 384x384, "
+          "3 steps replay vs eager: " + "; ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; launches in one capture {capture_launches[TRAIN_KINDS[0]]} (f32: none); "
+          "memory_reserved MiB before / after model, Adam and capture "
+          + ", ".join(f"{k} {a / 2**20:.1f} / {b / 2**20:.1f}" for k, (a, b) in reserved.items())
+          + "; ms a step, events median of 20 | device (profiler) | kernels, eager vs "
+          "replay: " + "; ".join(
+              f"{k} {v['event'][0]:.3f} | {fmt_ms(v['device'][0]['ms'])} | "
+              f"{v['device'][0]['launches']} vs {v['event'][1]:.3f} | "
+              f"{fmt_ms(v['device'][1]['ms'])} | {v['device'][1]['launches']}"
+              for k, v in times.items())
+          + "; host ms a step (profiler CPU view) augment / device part, eager vs "
+          "replay: " + "; ".join(
+              f"{k} " + " / ".join(fmt_ms(v['host'][0][lab]) for lab in labels) + " vs "
+              + " / ".join(fmt_ms(v['host'][1][lab]) for lab in labels)
+              for k, v in times.items()))
+
+    # the Trainer with and without graphs, and the train CLI (graphs)
+    steps_s = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        write_us1k_tree(os.path.join(tmp, "data"), np.random.default_rng(23))
+        with open(os.path.join(ROOT, "configs", "M2Trans_x4.yml")) as fh:
+            ycfg = yaml.safe_load(fh)
+        ycfg.update(dtype="bfloat16", use_pallas=True, data_path=os.path.join(tmp, "data"),
+                    train_range=[1, 4], data_repeat=32, epochs=1, log_every=8,
+                    test_every=2, eval_sets=["CCA-US"], log_path=os.path.join(tmp, "exp"),
+                    threads=2)
+        yml = os.path.join(tmp, "train.yml")
+        with open(yml, "w") as fh:
+            yaml.dump(ycfg, fh)
+
+        def rate(text):  # steps/s over the log lines after the first
+            secs = [float(ln.rsplit("time: ", 1)[1]) for ln in text.splitlines()
+                    if ln.startswith("Epoch:")]
+            need(len(secs) == 6, f"train log lines {secs}")
+            return 8 * len(secs[1:]) / sum(secs[1:])
+
+        for graphs in (False, True):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer = Trainer(load_config(yml), device=dev, graphs=graphs)
+                trainer.run()
+                sys.stdout.log.close()
+            steps_s[f"Trainer graphs={graphs}"] = rate(buf.getvalue())
+        res = subprocess.run([sys.executable, "-m", "m2trans_tpu_torch.train",
+                              "--config", yml], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        need(res.returncode == 0, f"train CLI exited {res.returncode}:\n{res.stderr[-3000:]}")
+        steps_s["train CLI (graphs)"] = rate(res.stdout)
+    print("phase 23 steps/s (x4 bf16 + kernels, 2x96x96 -> 384x384, C++ loader, the "
+          "log lines 2-6 of 8 steps): " + ", ".join(f"{k} {v:.2f}" for k, v in steps_s.items()))
+
+    # the eval forward's graphs: the split a frame, eager and replayed
+    eval_shapes = [(128, 128)] * 6 + [(100, 76)] * 2
+    out = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        write_benchmark_tree(os.path.join(tmp, "data"), np.random.default_rng(24),
+                             eval_shapes)
+        with open(os.path.join(ROOT, CONFIG)) as fh:
+            ycfg = yaml.safe_load(fh)
+        ycfg.update(data_path=os.path.join(tmp, "data"), eval_sets=["CCA-US"])
+        yml = os.path.join(tmp, "test.yml")
+        with open(yml, "w") as fh:
+            yaml.dump(ycfg, fh)
+        model = init_m2trans(load_config(yml), seed=0, device=dev)
+        pt = os.path.join(tmp, "model_x4.pt")
+        torch.save({"model_state_dict": reference_state_dict(model, True)}, pt)
+        for dtype in ("float32", "bfloat16"):
+            cfg = load_config(yml, overrides={
+                "model_path": pt, "dtype": dtype,
+                "use_pallas": True if dtype == "bfloat16" else None})
+            t1 = time.perf_counter()
+            _, sets = create_datasets(cfg, train=False)
+            reads = (time.perf_counter() - t1) / len(eval_shapes)
+            policy = policy_from_config(cfg)
+            runner = eval_runner(model, cfg, policy)
+            split = {"reads": reads, "forward eager": [], "forward replay": [],
+                     "capture": [], "metrics": []}
+            with torch.inference_mode():
+                for lr, hr, _ in sets[0]["dataset"]:
+                    lr_t, hr_t = torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    m2trans_apply(model, lr_t, cfg, policy)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    before = runner.captures
+                    sr = runner(lr_t)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    fsim(hr_t, sr, data_range=cfg.rgb_range)
+                    gmsd(hr_t, sr, data_range=cfg.rgb_range)
+                    m = sr_eval_metrics(sr, hr_t, scale=cfg.scale, colors=cfg.colors,
+                                        rgb_range=cfg.rgb_range)
+                    float(m["psnr"])
+                    t4 = time.perf_counter()
+                    split["forward eager"].append(t2 - t1)
+                    split["capture" if runner.captures > before else "forward replay"
+                          ].append(t3 - t2)
+                    split["metrics"].append(t4 - t3)
+            for k in ("forward eager", "forward replay", "metrics"):
+                split[k] = statistics.median(split[k][1:] or split[k])
+            split["capture"] = statistics.mean(split["capture"])
+            # whole evaluations: eager, replayed (graphs already captured), and
+            # after the weights moved (a validation in training: every shape
+            # captured again)
+            whole = {}
+            for label, graphs in (("eager", False), ("replay", True)):
+                t1 = time.perf_counter()
+                res_eval = evaluate_all(model, cfg, sets, full_metrics=True, graphs=graphs)
+                torch.cuda.synchronize()
+                whole[label] = (time.perf_counter() - t1) / len(eval_shapes)
+                out.setdefault(dtype, {})[label] = res_eval
+            need(out[dtype]["eager"] == out[dtype]["replay"],
+                 f"eval {dtype}: graphs {out[dtype]['replay']} vs eager {out[dtype]['eager']}")
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(0)  # a write in place: the graphs are stale
+            t1 = time.perf_counter()
+            evaluate_all(model, cfg, sets, full_metrics=True)
+            torch.cuda.synchronize()
+            whole["after a weight write"] = (time.perf_counter() - t1) / len(eval_shapes)
+            res = subprocess.run([sys.executable, "-m", "m2trans_tpu_torch.test", "--config",
+                                  yml, "--model_path", pt, "--dtype", dtype], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=600)
+            need(res.returncode == 0, f"eval CLI exited {res.returncode}:\n{res.stderr[-3000:]}")
+            e = out[dtype]["eager"]["CCA-US"]
+            want = (f"[CCA-US-X4] PSNR:{e['psnr']:.2f},SSIM:{e['ssim']:.4f}\n"
+                    f"FSIM:{e['fsim']:.4f},GMSD:{e['gmsd']:.4f}\n")
+            need(res.stdout == want, f"eval CLI {dtype} (graphs) printed {res.stdout!r}, "
+                 f"the eager evaluation {want!r}")
+            out[dtype]["split"], out[dtype]["whole"] = split, whole
+    print("phase 23 eval x4, 8 frames (6x 128x128, 2x 100x76 LR), FSIM/GMSD, s/frame "
+          "(host clock, synchronised): " + "; ".join(
+              f"{d} reads {v['split']['reads']:.4f}, forward eager "
+              f"{v['split']['forward eager']:.4f} vs replay {v['split']['forward replay']:.4f} "
+              f"(a capture {v['split']['capture']:.4f}), metrics {v['split']['metrics']:.4f}; "
+              "whole evaluation " + ", ".join(f"{k} {s:.4f}" for k, s in v['whole'].items())
+              for d, v in out.items())
+          + "; python -m m2trans_tpu_torch.test (graphs) prints the eager evaluation's "
+          f"lines; phase 23 in {time.perf_counter() - t0:.1f} s")
+    return capture_launches[TRAIN_KINDS[0]]
 
 
 def run() -> dict:
@@ -1628,9 +1949,9 @@ def run() -> dict:
     lr_b = torch.rand(2, 96, 96, 3, generator=gen).to(dev)
     hr_b = torch.rand(2, 384, 384, 3, generator=gen).to(dev)
 
-    def train_model(c):
+    def train_model(c):  # eager: its launches are counted a step
         m = init_m2trans(c, seed=0, device=dev)
-        return m, make_train_step(c, m, make_optimizer(c, m))
+        return m, make_train_step(c, m, make_optimizer(c, m), graphs=False)
 
     def step_grads(m):  # the step's gradients, still in place after Adam
         return {n: p.grad for n, p in m.named_parameters() if p.requires_grad}
@@ -1852,13 +2173,15 @@ def run() -> dict:
         m_f32, _, l_f32, s_f32 = eval_run([])
         m_bf, out_bf, eval_launches, s_bf = eval_run(["--dtype", "bfloat16"])
         m_bk, _, _, _ = eval_run(["--bucket", "32"])
-        n = len(eval_shapes)
+        # the CLI replays a graph a frame shape: the wrappers count the
+        # side-stream run and the capture of each shape, not the replays
+        n = 2 * len(set(eval_shapes))
         need(l_f32 == {"cftm_branch": 0, "ff_conv": 0, "tail_band_fused": 0},
              f"the f32 eval launched kernels: {l_f32}")
         need(eval_launches == {"cftm_branch": 32 * n, "ff_conv": 8 * n,
                                "tail_band_fused": n},
              f"the bf16 eval launched {eval_launches}, want {32 * n} K1, "
-             f"{8 * n} K3, {n} K2")
+             f"{8 * n} K3, {n} K2 (two forwards a shape)")
         for key, val in m_bf.items():
             tol = EVAL_TOL[0] if key == "psnr" else EVAL_TOL[1]
             need(abs(val - m_f32[key]) <= tol + 1e-9,
@@ -1872,7 +2195,8 @@ def run() -> dict:
              f"{res.stderr[-3000:]}")
         need(res.stdout == out_bf, f"python -m m2trans_tpu_torch.test printed "
              f"{res.stdout!r}, in process {out_bf!r}")
-    print(f"phase 15 eval CLI x4, 4 frames (3x 96x96, 1x 100x76 LR), FSIM/GMSD: "
+    print(f"phase 15 eval CLI x4 (a CUDA graph a frame shape), 4 frames (3x 96x96, "
+          f"1x 100x76 LR), FSIM/GMSD: "
           f"f32 {m_f32} ({s_f32:.3f} s/frame); bf16 + kernels {m_bf} "
           f"({s_bf:.3f} s/frame), launches {eval_launches}; --bucket 32 f32 "
           f"{m_bk}; python -m prints the same lines")
@@ -1898,7 +2222,7 @@ def run() -> dict:
     step_ms = {}
     for name, c in (("kernels", tcfg), ("plain", tcfg.replace(use_pallas=False))):
         m = init_m2trans(c, seed=0, device=dev)
-        st = make_train_step(c, m, make_optimizer(c, m))
+        st = make_train_step(c, m, make_optimizer(c, m), graphs=False)
         step_ms[name] = time_ms(lambda: st(lr_b, hr_b), n=10)
     # the profiler after every event timing: once it has run, launches from
     # this process cost the host more
@@ -2006,6 +2330,12 @@ def run() -> dict:
     # before each capture and read just after)
     graph_launches = graphed_phase(dev, cfg, serve)
 
+    # 23. the train step replayed from a CUDA graph (L1, the shipped f32 and
+    # the recipe's), the Trainer and the train CLI with graphs, the eval
+    # forward's graphs and the eval split (the launch counts are set to 0
+    # just before each capture and read just after)
+    train_graph_launches = graphed_train_phase(dev, lr_b, hr_b, work)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -2032,6 +2362,7 @@ def run() -> dict:
          "launches_sharded_forward_per_rank": par["sharded_forward"][0],
          "launches_2d_mesh_per_rank": grid["launches"][0],
          "launches_graph_capture": graph_launches["cftm_branch"],
+         "launches_train_graph_capture": train_graph_launches["cftm_branch"],
          "launches_ddp_step_per_rank": par["ddp_step"][0]},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
@@ -2041,6 +2372,7 @@ def run() -> dict:
          "launches_sharded_forward_per_rank": par["sharded_forward"][2],
          "launches_2d_mesh_per_rank": grid["launches"][2],
          "launches_graph_capture": graph_launches["tail_band"],
+         "launches_train_graph_capture": train_graph_launches["tail_band"],
          "launches_ddp_step_per_rank": par["ddp_step"][2]},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
@@ -2051,6 +2383,7 @@ def run() -> dict:
          "device_ms": None if None in k1b_dev.values() else per_cftm(k1b_dev),
          "device_ms_by_level": k1b_dev, "variant_by_level": k1b_variant,
          "bound_ms_by_level": {i: k1b_bound[i]["bound_ms"] for i in range(3)},
+         "launches_train_graph_capture": train_graph_launches["cftm_branch_bwd"],
          "launches_ddp_step_per_rank": par["ddp_step"][3]},
         {"name": "tail_band_bwd", "route": "cuda", "source": csrc + "tail_band_bwd.cu",
          "replaces": pallas + "tail_band.py:438",
@@ -2061,6 +2394,7 @@ def run() -> dict:
                                 "x3": k2b_small_dev[3]},
          "variant_by_level": {f"x{sc}": f"{sc * sc} roles, one a phase block"
                               for sc in (2, 3, 4)},
+         "launches_train_graph_capture": train_graph_launches["tail_band_bwd"],
          "launches_ddp_step_per_rank": par["ddp_step"][4]},
         {"name": "ff_conv", "route": "cuda", "source": csrc + "ff_conv.cu",
          "replaces": pallas + "ff_pair.py:60",
@@ -2070,6 +2404,7 @@ def run() -> dict:
          "launches_sharded_forward_per_rank": par["sharded_forward"][1],
          "launches_2d_mesh_per_rank": grid["launches"][1],
          "launches_graph_capture": graph_launches["ff_conv"],
+         "launches_train_graph_capture": train_graph_launches["ff_conv"],
          "launches_ddp_step_per_rank": par["ddp_step"][1]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",

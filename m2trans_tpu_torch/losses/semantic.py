@@ -27,10 +27,13 @@ the SR-side vision encoder (:func:`semantic_loss_staged`) inside it. The
 composition equals :func:`semantic_loss`.
 
 Randomness: the crop origins are drawn on the host from a numpy
-``Generator`` (:func:`crop_offsets`) and crops are slices at Python
-integers, so a step makes no device-to-host copy; every function takes
-``offsets=(ys, xs)`` instead, so the same crops can be fed to the JAX
-package.
+``Generator`` (:func:`crop_offsets`), so a step makes no device-to-host
+copy; every function takes ``offsets=(ys, xs)`` instead, so the same crops
+can be fed to the JAX package. The offsets may also be integer tensors on
+the images' device, which a captured train step (``train/graphed.py``)
+refills before each replay: a crop is not a slice at Python integers but
+two products with one-hot selection matrices built on the device
+(:func:`_crops_at`), deterministic in both directions.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from m2trans_tpu_torch.models.m2trans import _no_tf32
 from m2trans_tpu_torch.models.medclip.model import MedCLIP, MedCLIPConfig
 from m2trans_tpu_torch.ops.resize import bicubic_resize
 
@@ -57,13 +61,33 @@ def crop_offsets(rng: np.random.Generator, bsz: int, h: int, w: int, n: int,
     return ys, xs
 
 
+def _selection(origins: torch.Tensor, size: int, extent: int, dtype) -> torch.Tensor:
+    """(n, B, size, extent) one-hot rows: row r of crop (i, b) selects
+    position ``origins[i, b] + r``."""
+    dev = origins.device
+    want = origins[..., None] + torch.arange(size, device=dev)  # (n, B, size)
+    return (want[..., None] == torch.arange(extent, device=dev)).to(dtype)
+
+
 def _crops_at(x: torch.Tensor, offsets: Offsets, n: int, size: int) -> torch.Tensor:
     """(n*B, size, size, C): the first n crops of every image, crop-major,
-    at the given per-image origins."""
-    ys, xs = offsets
-    return torch.stack([x[b, int(ys[i, b]):int(ys[i, b]) + size,
-                          int(xs[i, b]):int(xs[i, b]) + size]
-                        for i in range(n) for b in range(x.shape[0])])
+    at the given per-image origins (numpy arrays, or integer tensors on x's
+    device). Each crop is ``S_y @ x[b] @ S_x^T`` with one-hot selection
+    matrices built on the device, so the origins are read by the device,
+    not baked in as Python integers, and the backward is two products (a
+    gather's would scatter-add overlapping crops with atomics). Every
+    output sums one nonzero term, so the values equal slicing's bit for bit
+    (TF32 off; x finite, as a clamped SR and an HR image are); so do the
+    gradients where at most two crops of an image overlap a pixel (the
+    recipe's 3 patches: 2 crops), since two terms add in one order only."""
+    ys, xs = ((o if torch.is_tensor(o) else torch.from_numpy(np.array(o, np.int64)))
+              .to(x.device)[:n] for o in offsets)
+    sel_y = _selection(ys, size, x.shape[1], x.dtype)
+    sel_x = _selection(xs, size, x.shape[2], x.dtype)
+    with _no_tf32():
+        rows = torch.einsum("nbrh,bhwc->nbrwc", sel_y, x)
+        crops = torch.einsum("nbsw,nbrwc->nbrsc", sel_x, rows)
+    return crops.reshape(n * x.shape[0], size, size, x.shape[3])
 
 
 def _patches(img: torch.Tensor, offsets: Optional[Offsets], n_patches: int,
@@ -180,8 +204,10 @@ class SemanticLossFn:
                 for k in ("input_ids", "attention_mask", "token_type_ids") if k in out}
 
     def _tokens(self, captions: Dict[str, Any], device):
-        tok = {k: torch.as_tensor(np.asarray(v), device=device).long()
-               for k, v in captions.items()}
+        """The token arrays (numpy, or tensors already on ``device``) as
+        int64 tensors on ``device``."""
+        tok = {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+               .to(device).long() for k, v in captions.items()}
         return tok["input_ids"], tok["attention_mask"], tok.get("token_type_ids")
 
     def draw_offsets(self, rng: np.random.Generator, bsz: int, h: int, w: int

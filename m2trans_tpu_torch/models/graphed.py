@@ -6,9 +6,10 @@ dispatches one executable a frame. Run eagerly, the port's forward is about
 250 launches from Python a frame, and on the card the host, not the device,
 bounds it. :class:`GraphedForward` captures
 :func:`~m2trans_tpu_torch.models.m2trans.m2trans_apply_microbatched` and the
-output cast (f32, or u8 as ``round(y * 255)``) into a ``torch.cuda.CUDAGraph``
-the first time it sees an input shape, as ``jax.jit`` traces on a first call,
-and replays it after: one launch from the host a frame.
+output cast (f32, or u8 as ``round(y * 255)`` in the forward's dtype) into
+a ``torch.cuda.CUDAGraph`` the first time it sees an input shape, as
+``jax.jit`` traces on a first call, and replays it after: one launch from
+the host a frame.
 
 Capture (:func:`capture`) runs the function once on a side stream first, so
 that everything built at first use is built outside the capture: the
@@ -32,13 +33,20 @@ as by ``_prepared``.
 All graphs of one runner share one memory pool and are replayed on one
 stream, so their intermediates share memory; the tensor a call returns is
 the graph's static output and stays valid until the next call of the runner
-(of any shape). A CPU model runs the same forward eagerly. There is no
-fallback: a capture or a replay that fails raises.
+(of any shape). With ``max_graphs`` a runner holds at most that many
+shapes' graphs: capturing one more drops the least recently replayed, whose
+static tensors the pool then reuses. A capture with no graph left takes a
+new pool: the allocator refuses a capture into a pool that no graph uses
+while a tensor of it is still alive (a returned output the caller holds),
+and the old pool is freed with its last tensor. A CPU model runs the same
+forward eagerly. There is no fallback: a capture or a replay that fails
+raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -60,9 +68,11 @@ COUNTED = {"cftm_branch": cftm_branch, "ff_conv": ff_conv,
 
 def served(y: torch.Tensor, output_u8: bool) -> torch.Tensor:
     """A forward's output as a server hands it out: f32, or u8
-    ``round(y * 255)`` with ``output_u8``."""
+    ``round(y * 255)`` with ``output_u8``, the product and the rounding in
+    the forward's own dtype (bf16 under the bf16 policy), as the JAX
+    ``StreamingSR`` quantises (m2trans_tpu/parallel/streaming.py:72-74)."""
     if output_u8:
-        return torch.round(y.float() * 255.0).to(torch.uint8)
+        return torch.round(y * 255.0).to(torch.uint8)
     return y.float()
 
 
@@ -109,6 +119,8 @@ class GraphedForward:
       cfg: model Config.
       policy: numerics policy.
       output_u8: quantise the output to u8 on the device.
+      max_graphs: the most shapes whose graphs are kept (None: no bound);
+        the least recently replayed is dropped first.
 
     ``captures`` and ``replays`` count what it did; ``capture_launches``
     holds, for each captured shape, the launches of the kernel wrappers
@@ -117,12 +129,13 @@ class GraphedForward:
     """
 
     def __init__(self, model: M2Trans, cfg: Config, policy: ComputePolicy, *,
-                 output_u8: bool = False):
+                 output_u8: bool = False, max_graphs: Optional[int] = None):
         self.model, self.cfg, self.policy = model, cfg, policy
         self.output_u8 = output_u8
+        self.max_graphs = max_graphs
         self.device = next(model.parameters()).device
-        self._pool = None  # the graphs' memory pool, made at the first capture
-        self._graphs: Dict[Tuple[int, ...], _Entry] = {}
+        self._pool = None  # the live graphs' memory pool
+        self._graphs: "OrderedDict[Tuple[int, ...], _Entry]" = OrderedDict()
         self._key = None
         self.captures = self.replays = 0
         self.capture_launches: Dict[Tuple[int, ...], Dict[str, int]] = {}
@@ -138,8 +151,12 @@ class GraphedForward:
         if key != self._key:
             self._graphs.clear()
             self._key = key
-        if shape not in self._graphs:
-            if self._pool is None:
+        if shape in self._graphs:
+            self._graphs.move_to_end(shape)
+        else:
+            if self.max_graphs is not None and len(self._graphs) >= self.max_graphs:
+                self._graphs.popitem(last=False)
+            if not self._graphs:
                 self._pool = torch.cuda.graph_pool_handle()
             inp = torch.zeros(shape, dtype=torch.float32, device=self.device)
             counts = []  # the wrappers' launches in each call of fn

@@ -5,7 +5,11 @@ The training state is saved in the reference's own format
 ``{epoch, model_state_dict, optimizer_state_dict, scheduler_state_dict,
 stat_dict}`` per epoch at ``<models>/model_x{scale}_{epoch}.pt``, with the
 reference's state-dict keys, so both packages' ``load_params_any`` read
-it. ``--resume`` restores the newest epoch, as the reference's
+it. The optimizer's state is written as the reference's plain Adam writes
+it (a float ``lr``, ``capturable`` False, ``step`` on the host), whether
+the optimizer that wrote it is the capturable CUDA one with a tensor LR
+(``train/loop.py::make_optimizer``) or the CPU one, and it loads into
+either (:func:`load_optimizer_state`). ``--resume`` restores the newest epoch, as the reference's
 glob-by-epoch logic (train.py:92-108). Orbax directories, the JAX
 package's own format, are not read here: orbax is a JAX library.
 """
@@ -34,8 +38,11 @@ def load_params_any(path: Optional[str], cfg: Config,
         raise ValueError("model_path is not set")
     if os.path.isdir(path) or not path.endswith(".pt"):
         raise NotImplementedError(
-            f"{path}: only reference .pt checkpoints are read by the torch "
-            "port; orbax checkpoint directories are not ported yet")
+            f"{path}: the torch port reads reference .pt checkpoints only; it "
+            "does not read orbax checkpoint directories (orbax is a JAX "
+            "library). Write a .pt from one with the JAX package's converter: "
+            "python convert_checkpoint.py --config <yml> --input <orbax dir> "
+            "--output <file>.pt")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     with torch.device("meta"):
@@ -48,6 +55,36 @@ def checkpoint_path(models_path: str, scale: int, epoch: int) -> str:
     return os.path.join(models_path, f"model_x{scale}_{epoch}.pt")
 
 
+def optimizer_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` in the reference's form: every group's
+    ``lr`` a float and ``capturable`` False, every ``step`` a host f32
+    scalar, as a plain Adam writes them."""
+    sd = optimizer.state_dict()  # its state dicts are the optimizer's own
+    sd["state"] = {k: dict(st) for k, st in sd["state"].items()}
+    for g in sd["param_groups"]:
+        g["lr"] = float(g["lr"])
+        g["capturable"] = False
+    for st in sd["state"].values():
+        if torch.is_tensor(st.get("step")):
+            st["step"] = st["step"].detach().to("cpu", torch.float32)
+    return sd
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: Dict[str, Any]) -> None:
+    """Load ``sd`` (:func:`optimizer_state`'s form, or a capturable
+    optimizer's) into ``optimizer``, which keeps its own ``capturable``
+    flag and its LR tensors (filled with the saved LRs): a CUDA graph of the
+    step reads the same tensor after a load."""
+    own = [(g.get("capturable", False), g["lr"]) for g in optimizer.param_groups]
+    groups = [dict(saved, capturable=cap)
+              for saved, (cap, _) in zip(sd["param_groups"], own)]
+    optimizer.load_state_dict({"state": sd["state"], "param_groups": groups})
+    for g, (_, lr) in zip(optimizer.param_groups, own):
+        if torch.is_tensor(lr):
+            lr.fill_(float(g["lr"]))
+            g["lr"] = lr
+
+
 def save_state(models_path: str, epoch: int, scale: int, model: M2Trans,
                optimizer: torch.optim.Optimizer,
                scheduler_state: Dict[str, Any], stat_dict: Dict) -> str:
@@ -55,7 +92,7 @@ def save_state(models_path: str, epoch: int, scale: int, model: M2Trans,
     path = checkpoint_path(models_path, scale, epoch)
     torch.save({"epoch": epoch,
                 "model_state_dict": reference_state_dict(model),
-                "optimizer_state_dict": optimizer.state_dict(),
+                "optimizer_state_dict": optimizer_state(optimizer),
                 "scheduler_state_dict": scheduler_state,
                 "stat_dict": stat_dict}, path)
     return path
@@ -79,5 +116,5 @@ def restore_latest(models_path: str, scale: int, model: M2Trans,
     ckpt = torch.load(checkpoint_path(models_path, scale, epoch),
                       map_location="cpu", weights_only=True)
     load_reference_state_dict(model, ckpt["model_state_dict"])
-    optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    load_optimizer_state(optimizer, ckpt["optimizer_state_dict"])
     return ckpt["epoch"], ckpt["stat_dict"]

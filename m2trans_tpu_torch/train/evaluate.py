@@ -10,6 +10,23 @@ device in f32. Both of the reference's recipes:
 By default frames are padded only by the model's own pad-to-32 rule, so the
 metrics compare with the reference's; ``bucket`` pads further.
 
+On a CUDA model the single-device forward replays a CUDA graph per LR
+shape (JAX ``fwd_single``, jitted per shape): :func:`eval_runner`, one
+``models/graphed.py::GraphedForward`` a (model, policy), kept on the model
+so that every set and every later evaluation of the same weights replays
+the graphs already captured. Its graphs are dropped when a weight moves
+(the next frame captures again) and bounded: at most ``EVAL_MAX_GRAPHS``
+shapes are held, the least recently replayed dropped first, so the pool
+holds at most that many shapes' static tensors (two serving captures, 8 x
+96x96 and 1 x 512x512, held ~380 MiB on the card, PERF.md §5). A capture
+costs about 3-7 eager forwards of its frame (PERF.md §6), so a set
+with a shape a frame pays a capture a frame; ``bucket`` pads the frames to
+a few shapes, which is what lets a set of mixed sizes replay its graphs.
+``graphs=False`` runs the forward eagerly, as the Trainer's validation
+does (``train/loop.py``): its weights moved since the last validation, so
+every shape would capture again. The sharded forward stays eager, as the
+JAX package's does.
+
 With more than one rank (``python -m torch.distributed.run``) every rank
 runs the same evaluation and bf16 frames of 512x512 pixels or more are
 sharded by rows over the ranks (:func:`make_forward_fn`, JAX
@@ -31,6 +48,7 @@ import torch
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.images import write_image
 from m2trans_tpu_torch.metrics import fsim, gmsd, sr_eval_metrics
+from m2trans_tpu_torch.models.graphed import GraphedForward
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
@@ -41,20 +59,41 @@ from m2trans_tpu_torch.models.m2trans import (
 from m2trans_tpu_torch.parallel import spatial
 
 
+EVAL_MAX_GRAPHS = 8  # shapes whose graphs an eval runner holds
+
+
+def eval_runner(model: M2Trans, cfg: Config, policy: ComputePolicy) -> GraphedForward:
+    """The graphed eval forward of ``model`` under ``policy``: one
+    ``GraphedForward`` kept on the model (not in its state_dict) and made
+    anew only for another config, so that it outlives an evaluation."""
+    runners = model.__dict__.setdefault("_eval_runners", {})
+    runner = runners.get(policy)
+    if runner is None or runner.cfg != cfg:
+        runner = runners[policy] = GraphedForward(model, cfg, policy,
+                                                  max_graphs=EVAL_MAX_GRAPHS)
+    return runner
+
+
 def make_forward_fn(model: M2Trans, cfg: Config,
                     policy: Optional[ComputePolicy] = None,
-                    auto_space: bool = True):
+                    auto_space: bool = True, graphs: bool = True):
     """A forward ``lr -> sr``. With ``auto_space`` a frame that
     :func:`~m2trans_tpu_torch.parallel.spatial.auto_space_mesh` picks a mesh
     for (bf16, more than one rank, a large frame) goes through the sharded
     forward over the ranks, which must all call it with the same frame; a
-    rank outside that mesh runs the single-device forward."""
+    rank outside that mesh runs the single-device forward. On a CUDA model
+    with ``graphs`` the single-device forward replays :func:`eval_runner`'s
+    graphs; its result (f32) is valid until the next call."""
     policy = policy or policy_from_config(cfg)
+    cuda = next(model.parameters()).device.type == "cuda"
+    runner = eval_runner(model, cfg, policy) if graphs and cuda else None
 
     def fwd(lr: torch.Tensor) -> torch.Tensor:
         mesh = (spatial.auto_space_mesh(lr.shape[1], lr.shape[2], cfg, policy)
                 if auto_space else None)
         if mesh is None or mesh.rank < 0:
+            if runner is not None:
+                return runner(lr)
             return m2trans_apply(model, lr, cfg, policy)
         return spatial.spatial_sharded_forward(model, lr, cfg, mesh=mesh,
                                                policy=policy)
@@ -70,18 +109,20 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
                      writer_tag: Optional[str] = None,
                      writer_step: int = 0,
                      bucket: int = 0,
-                     auto_space: bool = True) -> Dict[str, float]:
+                     auto_space: bool = True,
+                     graphs: bool = True) -> Dict[str, float]:
     """PSNR/SSIM (and with ``full_metrics`` FSIM/GMSD) averaged over a
     benchmark set, with the reference's rounding biases, on the model's
-    device. ``auto_space``: see :func:`make_forward_fn`. With a ``writer``
-    every 20th frame emits its comparison panel (see the module docstring).
+    device. ``auto_space`` and ``graphs``: see :func:`make_forward_fn`.
+    With a ``writer`` every 20th frame emits its comparison panel (see the
+    module docstring).
 
     ``bucket > 0`` reflect-pads every LR frame up to a multiple of
     ``bucket`` before the forward and crops the SR back, so frames of many
     sizes share a few shapes. APPROXIMATE: the extra padding context
     perturbs border pixels slightly; the default (0) evaluates exactly
     like the reference."""
-    fwd = make_forward_fn(model, cfg, policy, auto_space)
+    fwd = make_forward_fn(model, cfg, policy, auto_space, graphs)
     dev = next(model.parameters()).device
     sums = {"psnr": 0.0, "ssim": 0.0, "fsim": 0.0, "gmsd": 0.0}
     n = 0
@@ -136,7 +177,8 @@ def evaluate_all(model: M2Trans, cfg: Config, eval_sets: List[Dict], *,
                  writer=None,
                  writer_step: int = 0,
                  bucket: int = 0,
-                 auto_space: bool = True) -> Dict[str, Dict[str, float]]:
+                 auto_space: bool = True,
+                 graphs: bool = True) -> Dict[str, Dict[str, float]]:
     results = {}
     for item in eval_sets:
         save_dir = os.path.join(save_root, item["name"]) if save_root else None
@@ -144,5 +186,5 @@ def evaluate_all(model: M2Trans, cfg: Config, eval_sets: List[Dict], *,
             model, cfg, item["dataset"], policy=policy,
             full_metrics=full_metrics, save_dir=save_dir, writer=writer,
             writer_tag=item["name"], writer_step=writer_step, bucket=bucket,
-            auto_space=auto_space)
+            auto_space=auto_space, graphs=graphs)
     return results

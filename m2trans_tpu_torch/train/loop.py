@@ -6,6 +6,12 @@ input-noise augmentation, validation with Y-channel PSNR/SSIM after each
 ``test_every`` epochs, best-metric stat tracking, a reference-format
 checkpoint per validated epoch, resume from the newest.
 
+On one card each step's device part (the semantic loss's constant stage,
+the forward, the losses, the backward and Adam) replays a CUDA graph per
+batch layout, the JAX step's ``jax.jit`` (``train/graphed.py``); the
+draws and augmentations run eagerly before it. Validation runs its forward
+eagerly (see ``Trainer._validate``).
+
 Numerics follow the JAX training policy (``policy_from_config(cfg)``,
 the JAX ``for_training=True``): the parameters stay f32 and the bf16 compute cast
 happens inside the forward; in bf16 with ``use_pallas`` the forward runs K1,
@@ -39,8 +45,10 @@ Profiler traces (``profile_dir``): ``torch.profiler`` traces steps 6-10 of
 the run's first epoch (host activity, and the card's where the model lies on
 one) and writes ``<profile_dir>/trace_rank<r>.json``, a Chrome trace a rank.
 An epoch of fewer than 11 steps is traced to its end (JAX leaves that trace
-running). A process that has run ``torch.profiler`` launches kernels more
-slowly afterwards, so time nothing in it after a traced run.
+running). A step's host work is labelled in the trace: ``m2t::augment``
+(the draws and the augmentations) and ``m2t::device_step`` (the graph's
+replay, or the eager device part). A process that has run ``torch.profiler`` launches
+kernels more slowly afterwards, so time nothing in it after a traced run.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.augment import (
@@ -75,6 +84,7 @@ from m2trans_tpu_torch.ops.resize import bilinear_resize
 from m2trans_tpu_torch.parallel import mesh as mesh_lib
 from m2trans_tpu_torch.train import checkpoint as ckpt_lib
 from m2trans_tpu_torch.train.evaluate import evaluate_all
+from m2trans_tpu_torch.train.graphed import LOSS_NAMES, GraphedTrainStep
 from m2trans_tpu_torch.train.schedule import cosine_annealing_lr
 from m2trans_tpu_torch.utils.experiment import (
     ExperimentLogger,
@@ -97,10 +107,18 @@ def _comparison_panel(lr_np: np.ndarray, sr_np: np.ndarray, hr_np: np.ndarray,
 
 def make_optimizer(cfg: Config, model: M2Trans) -> torch.optim.Adam:
     """Adam (eps 1e-8, no weight decay) over the trainable parameters;
-    the frozen MeanShift convs are left out (the JAX ``optax.masked``)."""
-    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
-                            lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=0.0)
+    the frozen MeanShift convs are left out (the JAX ``optax.masked``). On a
+    CUDA model it is capturable, its LR a 0-d device tensor (``set_lr``
+    fills it), so that a CUDA graph of the step can replay it
+    (``train/graphed.py``); the eager CUDA step runs the same form, whose
+    bias corrections are computed on the device in f32, so graph and eager
+    agree bit for bit. On the CPU: the plain Adam, the LR a float."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    dev = params[0].device
+    cuda = dev.type == "cuda"
+    lr = torch.tensor(float(cfg.lr), dtype=torch.float32, device=dev) if cuda else cfg.lr
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0, capturable=cuda)
 
 
 def epoch_lr(cfg: Config, epoch: int) -> float:
@@ -111,12 +129,18 @@ def epoch_lr(cfg: Config, epoch: int) -> float:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's LR: a tensor LR is filled in place (a captured
+    step reads it), a float one replaced."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimizer,
-                    semantic_loss_fn: Optional[Callable] = None) -> Callable:
+                    semantic_loss_fn: Optional[Callable] = None, *,
+                    graphs: bool = True) -> Callable:
     """One step in the JAX step's order (JAX loop.py:90-146): cutmix,
     cutout (only with ``do_cutout``), input noise, the semantic loss's
     constant stage under ``torch.no_grad()``, the forward under the training
@@ -126,6 +150,14 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
     seeded from ``cfg.seed``); ``captions`` the tokenized captions, without
     which the semantic loss is 0. Returns the loss tensors (not
     synchronised).
+
+    The draws and the augmentations run eagerly; the rest, from the
+    constant stage to Adam, is the step's device part. On a CUDA model in
+    one process with ``graphs`` (the default) the device part is replayed
+    from a CUDA graph per batch layout (``train/graphed.py``, the JAX
+    step's ``jax.jit``; ``step.graphed`` is its runner). ``graphs=False``
+    runs it eagerly, as the CPU and the data-parallel steps always do; the
+    eager and the replayed step agree bit for bit.
 
     Data parallelism (a default group of more than one rank): the step
     takes the global batch (and its captions), augments it and draws the
@@ -139,10 +171,10 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
     own_rng = np.random.default_rng(cfg.seed)
     clip_on = semantic_loss_fn is not None and cfg.lambda_clip > 0
     rank, ranks = mesh_lib.world()
+    dev = next(model.parameters()).device
     if ranks > 1:
         from torch.nn.parallel import DistributedDataParallel
 
-        dev = next(model.parameters()).device
         ddp = DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None)
 
@@ -152,31 +184,9 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         def forward(x):
             return m2trans_apply(model, x, cfg, policy)
 
-    def train_step(lr_img: torch.Tensor, hr_img: torch.Tensor,
-                   sample_mask: Optional[torch.Tensor] = None, *,
-                   captions: Optional[Dict[str, np.ndarray]] = None,
-                   rng: Optional[np.random.Generator] = None,
-                   do_cutout: bool = False) -> Dict[str, torch.Tensor]:
-        rng = own_rng if rng is None else rng
-        b, lh, lw = lr_img.shape[:3]
-        rows = rank_rows(b, rank, ranks)
-        if cfg.cutmix:
-            lr_img, hr_img = cutmix_apply(lr_img, hr_img, cutmix_draw(rng, b, lh, lw),
-                                          cfg.scale)
-        if do_cutout:
-            lr_img = cutout_apply(lr_img, cutout_draw(rng, b, lh, lw, cutout_len))
-        if cfg.data_add_noise:
-            noise = noise_draw(rng)
-            if noise is not None:
-                lr_img = gaussian_noise(lr_img, *noise)
-
-        offsets = None
-        if clip_on and captions is not None:  # drawn for the global batch
-            offsets = semantic_loss_fn.draw_offsets(rng, b, *hr_img.shape[1:3])
-            offsets = tuple(o[:, rows] for o in offsets)
-            captions = {k: np.asarray(v)[rows] for k, v in captions.items()}
-        lr_img, hr_img = lr_img[rows], hr_img[rows]
-
+    def device_step(lr_img, hr_img, sample_mask, offsets, captions) -> torch.Tensor:
+        """The constant stage, forward, losses, backward and Adam on this
+        rank's rows; (3,) loss, L1, clip."""
         # the semantic loss's constant stage carries no d/d(sr): no graph
         # (no_grad, not inference_mode: its tensors enter the loss below)
         clip_const = None
@@ -190,8 +200,8 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
             l1 = l1_loss(sr, hr_img) * cfg.lambda_l1
         else:
             per = (sr.float() - hr_img.float()).abs().mean(dim=(1, 2, 3))
-            l1 = ((per * sample_mask[rows]).sum() / sample_mask.sum() * ranks
-                  * cfg.lambda_l1)
+            mine = sample_mask[rank_rows(sample_mask.shape[0], rank, ranks)]
+            l1 = (per * mine).sum() / sample_mask.sum() * ranks * cfg.lambda_l1
         if clip_const is not None:
             clip = semantic_loss_fn.loss_staged_from_params(
                 semantic_loss_fn.model, sr, clip_const) * (cfg.lambda_clip * ranks)
@@ -201,8 +211,45 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
-        return {"loss": loss.detach(), "l1": l1.detach(), "clip": clip.detach()}
+        return torch.stack([loss, l1, clip]).detach()
 
+    graphed = None
+    if graphs and ranks == 1 and dev.type == "cuda":
+        graphed = GraphedTrainStep(
+            device_step, [p for g in optimizer.param_groups for p in g["params"]],
+            optimizer)
+
+    def train_step(lr_img: torch.Tensor, hr_img: torch.Tensor,
+                   sample_mask: Optional[torch.Tensor] = None, *,
+                   captions: Optional[Dict[str, np.ndarray]] = None,
+                   rng: Optional[np.random.Generator] = None,
+                   do_cutout: bool = False) -> Dict[str, torch.Tensor]:
+        rng = own_rng if rng is None else rng
+        b, lh, lw = lr_img.shape[:3]
+        rows = rank_rows(b, rank, ranks)
+        with record_function("m2t::augment"):
+            if cfg.cutmix:
+                lr_img, hr_img = cutmix_apply(
+                    lr_img, hr_img, cutmix_draw(rng, b, lh, lw), cfg.scale)
+            if do_cutout:
+                lr_img = cutout_apply(lr_img, cutout_draw(rng, b, lh, lw, cutout_len))
+            if cfg.data_add_noise:
+                noise = noise_draw(rng)
+                if noise is not None:
+                    lr_img = gaussian_noise(lr_img, *noise)
+
+        offsets = None
+        if clip_on and captions is not None:  # drawn for the global batch
+            offsets = semantic_loss_fn.draw_offsets(rng, b, *hr_img.shape[1:3])
+            offsets = tuple(o[:, rows] for o in offsets)
+            captions = {k: np.asarray(v)[rows] for k, v in captions.items()}
+        lr_img, hr_img = lr_img[rows], hr_img[rows]
+        with record_function("m2t::device_step"):
+            run = device_step if graphed is None else graphed
+            out = run(lr_img, hr_img, sample_mask, offsets, captions)
+        return dict(zip(LOSS_NAMES, out.unbind()))
+
+    train_step.graphed = graphed
     return train_step
 
 
@@ -215,10 +262,14 @@ class Trainer:
     number of ranks of the default group (1 without one); above 1 the
     model trains under ``DistributedDataParallel`` (see the module
     docstring) and every rank validates, so that no rank waits out the
-    group timeout while rank 0 validates alone."""
+    group timeout while rank 0 validates alone. On one card each step
+    replays a CUDA graph (``make_train_step``); ``graphs=False`` runs it
+    eagerly, for comparisons. The losses are summed on the device in f64
+    and read at each ``log_every`` step, not every step."""
 
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
-                 semantic_loss_fn: Optional[Callable] = None, writer: Any = None):
+                 semantic_loss_fn: Optional[Callable] = None, writer: Any = None,
+                 graphs: bool = True):
         self.rank, self.ranks = mesh_lib.world()
         if cfg.mesh_data != self.ranks:
             raise ValueError(
@@ -266,7 +317,7 @@ class Trainer:
             sys.stdout = ExperimentLogger(log_file, sys.stdout)
 
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          semantic_loss_fn)
+                                          semantic_loss_fn, graphs=graphs)
 
         # captions for the semantic loss (reference train.py:156-157, 189-193)
         self.captions = None
@@ -328,17 +379,16 @@ class Trainer:
             set_lr(self.optimizer, epoch_lr(cfg, epoch))
             # cutout only early on (reference train.py:180-181)
             do_cutout = bool(cfg.cutout) and epoch < cfg.epochs * 0.2
-            epoch_loss = l1_acc = clip_acc = 0.0
+            sums = None  # the epoch's loss, L1 and clip sums, f64 on the device
             prof = None
             for it, batch in enumerate(self.train_loader):
                 aux = self.step(it, batch, do_cutout)
+                losses = torch.stack([aux[k] for k in LOSS_NAMES])
                 if self.ranks > 1:  # the global batch's losses
-                    mean = mesh_lib.all_reduce_sum(torch.stack(
-                        [aux["loss"], aux["l1"], aux["clip"]])) / self.ranks
-                    aux = dict(zip(("loss", "l1", "clip"), mean))
-                epoch_loss += float(aux["loss"])
-                l1_acc += float(aux["l1"])
-                clip_acc += float(aux["clip"])
+                    losses = mesh_lib.all_reduce_sum(losses) / self.ranks
+                    aux = dict(zip(LOSS_NAMES, losses))
+                # added in f64 in step order: the sums a host float would hold
+                sums = losses.double() if sums is None else sums + losses.double()
 
                 # profiler trace of a few steady-state steps
                 if cfg.profile_dir and epoch == self.start_epoch:
@@ -354,6 +404,7 @@ class Trainer:
                                           it, dataformats="HWC")
 
                 if (it + 1) % cfg.log_every == 0:
+                    epoch_loss, l1_acc, clip_acc = sums.tolist()
                     avg = epoch_loss / (it + 1)
                     # faithful reference quirk: the logged stat divides the
                     # running average by (iter+1) a second time
@@ -402,9 +453,13 @@ class Trainer:
         save_root = (f"{self.experiment_path}/test_results_x{cfg.scale}"
                      if cfg.save_image and self.main else None)
         # every rank validates, so none waits for another's validation in
-        # a collective; large bf16 frames are sharded over the ranks
+        # a collective; large bf16 frames are sharded over the ranks. The
+        # forward is eager: the weights moved since the last validation, so
+        # graphs would capture every frame shape again, which at 4 frames a
+        # shape was no cheaper than the eager forward on the card (PERF.md
+        # §6), and costs more for sets of fewer frames a shape
         results = evaluate_all(self.model, cfg, self.eval_sets, save_root=save_root,
-                               writer=self.writer, writer_step=epoch)
+                               writer=self.writer, writer_step=epoch, graphs=False)
         log = ""
         for name, m in results.items():
             s = self.stat_dict[name]

@@ -487,7 +487,7 @@ def test_train_step_gradients_within_the_bf16_bound(dev):
                      ("f32", dict(dtype="float32", use_pallas=False))):
         cfg = Config(scale=4, n_feats=64, n_blocks=1, **kw)
         model = init_m2trans(cfg, seed=0, device=dev)
-        make_train_step(cfg, model, make_optimizer(cfg, model))(x, hr)
+        make_train_step(cfg, model, make_optimizer(cfg, model), graphs=False)(x, hr)
         grads[name] = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
     for n, gk in grads["kernels"].items():
         e = _rel_l2(grads["plain"][n], grads["f32"][n])
@@ -585,6 +585,30 @@ def test_weights_loaded_in_place_force_a_new_capture(dev):
 
 
 @pytest.mark.cuda
+def test_recapture_while_a_returned_output_is_held(dev):
+    """The caller keeps the static output of a dropped graph: the next
+    capture (the weights moved, or the only graph evicted by
+    ``max_graphs``) takes a new pool, and gives the fresh eager forward."""
+    cfg, model = _graphed_case(dev, n_blocks=1)
+    kern = ComputePolicy(torch.bfloat16, True)
+    gf = GraphedForward(model, cfg, kern, max_graphs=1)
+    gen = torch.Generator().manual_seed(5)
+    a = torch.rand(1, 64, 64, 3, generator=gen).to(dev)
+    b = torch.rand(1, 32, 64, 3, generator=gen).to(dev)
+    with torch.inference_mode():
+        held = gf(a)
+        want_a = held.clone()
+    with torch.no_grad():
+        model.head.bias.add_(0.01)
+    with torch.inference_mode():
+        held_b = gf(b)
+        assert torch.equal(held_b, serving_forward(model, b, cfg, kern, False))
+        assert torch.equal(gf(a), serving_forward(model, a, cfg, kern, False))
+        assert gf.captures == 3 and len(gf._graphs) == 1
+    assert held.shape == want_a.shape
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("policy", ["bf16 plain", "f32"])
 def test_graph_of_the_other_policies_equals_eager(dev, policy):
     """The policies without the kernels are captured too: bf16's plain tail
@@ -622,12 +646,12 @@ def test_streaming_with_graphs_yields_the_eager_frames(dev, depth):
 
 @pytest.mark.cuda
 def test_train_step_through_kernels(dev):
-    """One bf16 step of the training loop's ``make_train_step`` at the
+    """One eager bf16 step of the training loop's ``make_train_step`` at the
     flagship width (one block): 4 K1 + 1 K3 + 1 K2 forward and 4 K1b + 1 K2b
     backward launches, finite gradients for every trainable parameter."""
     cfg = Config(scale=4, n_feats=64, n_blocks=1, dtype="bfloat16", use_pallas=True)
     model = init_m2trans(cfg, seed=0, device=dev)
-    step = make_train_step(cfg, model, make_optimizer(cfg, model))
+    step = make_train_step(cfg, model, make_optimizer(cfg, model), graphs=False)
     x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0)).to(dev)
     hr = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(dev)
     fns = (cftm_branch, ff_conv, tail_band_fused, cftm_branch_bwd, tail_band_bwd)
@@ -667,7 +691,7 @@ def test_semantic_loss_step_through_kernels(dev):
         cfg = Config(scale=4, n_feats=64, n_blocks=1, lambda_clip=0.01, **kw)
         model = init_m2trans(cfg, seed=0, device=dev)
         counts = [f.launches for f in fns]
-        aux = make_train_step(cfg, model, make_optimizer(cfg, model), fn)(
+        aux = make_train_step(cfg, model, make_optimizer(cfg, model), fn, graphs=False)(
             x, hr, captions=caps, rng=np.random.default_rng(3))
         torch.cuda.synchronize()
         if name == "kernels":
@@ -807,8 +831,8 @@ def test_k4_matches_plain_exactly(dev, name, nb, g):
 
 @pytest.mark.cuda
 def test_bf16_eval_through_kernels(dev, tmp_path):
-    """The bf16 eval of a two-frame set with FSIM/GMSD launches K1, K3 and
-    K2 once per CFTM branch, CFTM and frame, and stays close to the f32
+    """The eager bf16 eval of a two-frame set with FSIM/GMSD launches K1, K3
+    and K2 once per CFTM branch, CFTM and frame, and stays close to the f32
     eval: PSNR within 0.1 dB, SSIM / FSIM / GMSD within 2e-3."""
     rng = np.random.default_rng(7)
     hr_dir, lr_dir = tmp_path / "HR", tmp_path / "LR_bicubic" / "X4"
@@ -826,9 +850,9 @@ def test_bf16_eval_through_kernels(dev, tmp_path):
     fns = (cftm_branch, ff_conv, tail_band_fused)
     counts = [f.launches for f in fns]
     bf16 = evaluate_dataset(model, cfg, ds, full_metrics=True,
-                            policy=ComputePolicy(torch.bfloat16, True))
+                            policy=ComputePolicy(torch.bfloat16, True), graphs=False)
     assert [f.launches - n for f, n in zip(fns, counts)] == [16, 4, 2]
-    f32 = evaluate_dataset(model, cfg, ds, full_metrics=True)
+    f32 = evaluate_dataset(model, cfg, ds, full_metrics=True, graphs=False)
     assert set(bf16) == {"psnr", "ssim", "fsim", "gmsd"}
     assert abs(bf16["psnr"] - f32["psnr"]) <= 0.1
     for k in ("ssim", "fsim", "gmsd"):
@@ -904,3 +928,226 @@ def test_data_space_mesh_forward_on_the_card(dev):
         assert r["x4_launches"] == [4, 1, 1] and r["loaded"] == []
         d = np.abs(r["x4"] - want)
         assert d.shape == (2, 512, 256, 3) and d.mean() < 5e-3 and d.max() < 1e-1
+
+
+# ---------------------------------------------------------------------------
+# the train step and the eval forward replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+_STEP_KINDS = {"bf16 kernels": dict(dtype="bfloat16", use_pallas=True),
+               "f32": dict(dtype="float32"),
+               "recipe": dict(dtype="bfloat16", use_pallas=True, lambda_clip=0.01)}
+
+
+def _step_case(dev, kind):
+    """The x4 step at the flagship width (one block), batch 2 x 96x96 ->
+    384x384; the recipe's with a tiny random MedCLIP (clip size 56, 3
+    patches) and ragged token ids."""
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+
+    cfg = Config(scale=4, n_feats=64, n_blocks=1, **_STEP_KINDS[kind])
+    fn, caps = None, None
+    if kind == "recipe":
+        mcfg = MedCLIPConfig.tiny()
+        fn = SemanticLossFn(init_medclip(mcfg, seed=0, device=dev), mcfg, None,
+                            clip_size=56)
+        ids = np.random.default_rng(0).integers(5, 128, (2, 16)).astype(np.int32)
+        mask = np.ones((2, 16), np.int32)
+        mask[1, 9:] = 0
+        caps = {"input_ids": ids, "attention_mask": mask}
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    hr = torch.rand(2, 384, 384, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    return cfg, fn, caps, x, hr
+
+
+def _train(dev, case, graphs, n=3, lrs=None, model=None, opt=None):
+    """``n`` steps from init seed 0 (or ``model`` / ``opt``), the draws of
+    step i from seed 10 + i, the LR of step i ``lrs[i]``; returns the
+    losses, the parameters, Adam's state and the step."""
+    from m2trans_tpu_torch.train.graphed import LOSS_NAMES
+    from m2trans_tpu_torch.train.loop import set_lr
+
+    cfg, fn, caps, x, hr = case
+    if model is None:
+        model = init_m2trans(cfg, seed=0, device=dev)
+        opt = make_optimizer(cfg, model)
+    step = make_train_step(cfg, model, opt, fn, graphs=graphs)
+    losses = []
+    for i in range(n):
+        if lrs is not None:
+            set_lr(opt, lrs[i])
+        aux = step(x, hr, captions=caps, rng=np.random.default_rng(10 + i))
+        losses.append(torch.stack([aux[k] for k in LOSS_NAMES]))
+    torch.cuda.synchronize()
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state = {f"{k}.{s}": v.clone() for k, p in model.named_parameters()
+             if p in opt.state for s, v in opt.state[p].items()}
+    return torch.stack(losses), params, state, step
+
+
+def _assert_same_run(got, want, exact):
+    """Losses, parameters and Adam's state bit for bit; where two eager runs
+    themselves differ (``exact`` False), each parameter's change and each
+    moment within relative L2 5e-2 (PERF.md §2's gradient bound)."""
+    (gl, gp, gs), (wl, wp, ws) = got[:3], want[:3]
+    if exact:
+        assert torch.equal(gl, wl), (gl, wl)
+        for name in wp:
+            assert torch.equal(gp[name], wp[name]), name
+        for name in ws:
+            assert torch.equal(gs[name], ws[name]), name
+        return
+    assert torch.allclose(gl, wl, rtol=5e-2, atol=0)
+    for name in ws:
+        if not name.endswith(".step"):
+            assert _rel_l2(gs[name], ws[name]) <= 5e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_STEP_KINDS))
+def test_graphed_train_step_equals_eager(dev, kind):
+    """Three replayed steps equal three eager steps from the same state, the
+    augmentations drawn anew each step: losses, parameters and Adam's
+    moments and steps bit for bit, for bf16 with the kernels, f32 and the
+    recipe (MedCLIP loss). One graph is captured, counting 4 K1 + 1 K3 + 1
+    K2 + 4 K1b + 1 K2b launches a block with the kernels (none in f32)."""
+    case = _step_case(dev, kind)
+    eager = _train(dev, case, graphs=False)
+    again = _train(dev, case, graphs=False)
+    graphed = _train(dev, case, graphs=True)
+    exact = all(torch.equal(a, b) for a, b in zip(
+        [eager[0], *eager[1].values(), *eager[2].values()],
+        [again[0], *again[1].values(), *again[2].values()]))
+    _assert_same_run(graphed, eager, exact)
+    runner = graphed[3].graphed
+    assert (runner.captures, runner.replays) == (1, 3)
+    (launches,) = runner.capture_launches.values()
+    k = kind != "f32"
+    assert launches == {"cftm_branch": 4 * k, "ff_conv": k, "tail_band": k,
+                        "cftm_branch_bwd": 4 * k, "tail_band_bwd": k}
+    assert bool(torch.isfinite(graphed[0]).all()) and bool((graphed[0][:, 2] > 0).all()) \
+        == (kind == "recipe")
+
+
+@pytest.mark.cuda
+def test_lr_set_between_epochs_reaches_the_replay(dev):
+    """``set_lr`` fills the optimizer's LR tensor, which the graph reads:
+    replayed steps under a changing LR equal eager ones, and differ from
+    steps at the first LR."""
+    case = _step_case(dev, "bf16 kernels")
+    lrs = [2e-4, 1e-4, 5e-5]
+    graphed = _train(dev, case, graphs=True, lrs=lrs)
+    eager = _train(dev, case, graphs=False, lrs=lrs)
+    fixed = _train(dev, case, graphs=True, lrs=[2e-4] * 3)
+    again = _train(dev, case, graphs=False, lrs=lrs)
+    exact = all(torch.equal(a, b) for a, b in zip(eager[1].values(), again[1].values()))
+    _assert_same_run(graphed, eager, exact)
+    assert not torch.equal(graphed[1]["head.weight"], fixed[1]["head.weight"])
+
+
+@pytest.mark.cuda
+def test_no_grad_forward_after_graphed_steps_reads_the_new_weights(dev):
+    """A replay writes the weights in place; the step bumps their version
+    counters, so ``param_key`` moves, and the no-grad forward (the Trainer's
+    panel, ``_prepared``'s operands) and the graphed eval forward give what a
+    fresh model loaded with the same weights gives."""
+    from m2trans_tpu_torch.models.m2trans import param_key, policy_from_config
+    from m2trans_tpu_torch.train.evaluate import make_forward_fn
+
+    case = _step_case(dev, "bf16 kernels")
+    cfg, _, _, x, _ = case
+    model = init_m2trans(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, model)
+    policy = policy_from_config(cfg)
+    lr1 = x[:1].clone()
+    fwd = make_forward_fn(model, cfg, policy)
+    with torch.no_grad():
+        m2trans_apply(model, lr1, cfg, policy)  # fills _prepared's caches
+    with torch.inference_mode():
+        fwd(lr1)  # captures the eval graph
+    keys = [param_key(p) for p in model.parameters()]
+    _train(dev, case, graphs=True, n=2, model=model, opt=opt)
+    moved = [param_key(p) for p in model.parameters()]
+    assert all(a != b for a, b, p in zip(keys, moved, model.parameters())
+               if p.requires_grad)
+    fresh = init_m2trans(cfg, seed=3, device=dev)
+    fresh.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got = m2trans_apply(model, lr1, cfg, policy)
+        want = m2trans_apply(fresh, lr1, cfg, policy)
+    assert torch.equal(got, want)
+    with torch.inference_mode():
+        assert torch.equal(fwd(lr1), want.float())
+
+
+@pytest.mark.cuda
+def test_resume_from_a_graphed_checkpoint_continues_identically(dev, tmp_path):
+    """Two graphed steps, the epoch's checkpoint (the reference's format: a
+    float LR, ``capturable`` False, ``step`` on the host), then a new model
+    and optimizer restored from it take two more steps, graphed and eager:
+    both equal four uninterrupted graphed steps."""
+    from m2trans_tpu_torch.train import checkpoint as ckpt_lib
+
+    case = _step_case(dev, "bf16 kernels")
+    cfg = case[0]
+    straight = _train(dev, case, graphs=True, n=4)
+    again = _train(dev, case, graphs=True, n=4)
+    exact = all(torch.equal(a, b) for a, b in zip(straight[1].values(), again[1].values()))
+    model = init_m2trans(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, model)
+    first = _train(dev, case, graphs=True, n=2, model=model, opt=opt)
+    ckpt_lib.save_state(str(tmp_path), 1, 4, model, opt, {}, {"epochs": 1})
+    saved = torch.load(tmp_path / "model_x4_1.pt", weights_only=True)
+    group = saved["optimizer_state_dict"]["param_groups"][0]
+    assert isinstance(group["lr"], float) and group["capturable"] is False
+    assert all(st["step"].device.type == "cpu"
+               for st in saved["optimizer_state_dict"]["state"].values())
+    for graphs in (True, False):
+        resumed = init_m2trans(cfg, seed=7, device=dev)
+        opt2 = make_optimizer(cfg, resumed)
+        assert ckpt_lib.restore_latest(str(tmp_path), 4, resumed, opt2)[0] == 1
+        assert torch.is_tensor(opt2.param_groups[0]["lr"])
+        assert opt2.param_groups[0]["capturable"] is True
+        # the draws of steps 2 and 3 of the straight run
+        cfg_, fn, caps, x, hr = case
+        step = make_train_step(cfg, resumed, opt2, fn, graphs=graphs)
+        losses = [torch.stack(list(step(x, hr, rng=np.random.default_rng(10 + i)).values()))
+                  for i in (2, 3)]
+        torch.cuda.synchronize()
+        params = {k: p.detach().clone() for k, p in resumed.named_parameters()}
+        state = {f"{k}.{s}": v for k, p in resumed.named_parameters()
+                 if p in opt2.state for s, v in opt2.state[p].items()}
+        _assert_same_run((torch.cat([first[0], torch.stack(losses)]), params, state),
+                         straight, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16 kernels", "f32"])
+def test_eval_metrics_with_graphs_equal_eager(dev, tmp_path, policy):
+    """evaluate_dataset with the graphed forward (a graph a frame shape,
+    two shapes here, kept on the model across calls) gives the eager
+    metrics exactly, FSIM/GMSD included; a second evaluation captures
+    nothing new."""
+    from m2trans_tpu_torch.train.evaluate import eval_runner
+
+    rng = np.random.default_rng(8)
+    hr_dir, lr_dir = tmp_path / "HR", tmp_path / "LR_bicubic" / "X4"
+    hr_dir.mkdir()
+    lr_dir.mkdir(parents=True)
+    for i, (h, w) in enumerate(((32, 32), (36, 28), (32, 32))):
+        u8 = rng.integers(0, 256, (4 * h, 4 * w, 3), dtype=np.uint8)
+        Image.fromarray(u8).save(hr_dir / f"g{i}.jpg", quality=95)
+        Image.fromarray(u8[::4, ::4]).save(lr_dir / f"g{i}x4.jpg", quality=95)
+    ds = BenchmarkDataset(str(hr_dir), str(tmp_path / "LR_bicubic"), scale=4)
+    cfg = Config(scale=4, n_feats=64, n_blocks=2)
+    model = init_m2trans(cfg, seed=0, device=dev)
+    pol = (ComputePolicy(torch.bfloat16, True) if policy == "bf16 kernels"
+           else ComputePolicy())
+    eager = evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol, graphs=False)
+    graphed = evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol)
+    runner = eval_runner(model, cfg, pol)
+    assert graphed == eager
+    assert (runner.captures, runner.replays) == (2, 3)
+    assert evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol) == eager
+    assert (runner.captures, runner.replays) == (2, 6)

@@ -150,7 +150,8 @@ def test_port_never_loads_jax():
         "import m2trans_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(m2trans_tpu_torch.__path__, 'm2trans_tpu_torch.')]\n"
         "assert 'm2trans_tpu_torch.train.jax_params' in names\n"
-        "assert {'m2trans_tpu_torch.bench', 'm2trans_tpu_torch.models.graphed'} <= set(names)\n"
+        "assert {'m2trans_tpu_torch.bench', 'm2trans_tpu_torch.models.graphed',\n"
+        "        'm2trans_tpu_torch.train.graphed'} <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules\n"
