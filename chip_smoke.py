@@ -37,7 +37,7 @@ launches its capture counts, a recapture after weights are loaded in place,
 event and device times of eager and replay, the memory its graphs hold,
 phase 6's PNGs (the infer CLI, which replays graphs) against an eager
 ``StreamingSR(graphs=False)`` run on the same frames, and ``python -m
-m2trans_tpu_torch.bench`` (its JSON line printed); last (phase 23) the
+m2trans_tpu_torch.bench`` (its JSON line printed); then (phase 23) the
 train step replayed from a CUDA graph (``train/graphed.py``) against the
 eager step bit for bit over 3 steps (the x4 L1 step in bf16 with the
 kernels, the shipped yml's f32 step, the recipe's step with MedCLIP f32),
@@ -45,7 +45,13 @@ the launches its capture counts, event, device and host ms eager vs
 replay, the memory its captures hold, the Trainer's steps/s with and
 without graphs and the train CLI's, and the eval forward's graphs: the
 eval's s/frame split into reads, forward and metrics, eager and replayed,
-and the eval CLI's lines against an eager evaluation. The CLIs and
+and the eval CLI's lines against an eager evaluation; last (phase 24) the
+augmentations inside the train step's graph (L1 bf16 with the kernels and
+the recipe, 8 steps, replay vs eager bit for bit, how often each fired,
+host ms of the augmentations and of the graphed device part), the
+``Trainer`` for 3 epochs validating each (bf16 with the kernels and f32):
+later validations capture nothing and equal eager ones, their s/frame
+split, and the metrics graphs' rows against the eager rows. The CLIs and
 Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -1214,8 +1220,9 @@ def trainer_phase(dev, tcfg, work) -> None:
 def graphed_phase(dev, cfg, serve) -> dict:
     """Phase 22: the serving forward replayed from a CUDA graph per input
     shape (``models/graphed.py``), against the eager forward bit for bit;
-    the launches its capture counts; a recapture after weights are loaded in
-    place; event and device times of eager and replay; phase 6's PNGs, which
+    the launches its capture counts; the graph kept across weights loaded in
+    place (its operands refreshed) and captured again after parameters are
+    replaced; event and device times of eager and replay; phase 6's PNGs, which
     the infer CLI served from graphs, against an eager stream of the same
     frames; ``python -m m2trans_tpu_torch.bench``. Returns the launches
     counted in the captures of the flagship shape."""
@@ -1274,19 +1281,27 @@ def graphed_phase(dev, cfg, serve) -> dict:
         f32_max = errs(got, want)[0]
         need(torch.equal(got, want), f"f32 replay vs eager at 1x256x256: max {f32_max}")
         parts.append("f32 1x256x256 equal")
-        # weights loaded in place after capture: the next call captures again
+        # weights loaded in place after capture: the graph is kept, its
+        # operands refreshed in place; parameters replaced: captured again
         gf = GraphedForward(model, cfg, kern)
         x = xs[(8, 96, 96, 3)]
         before = gf(x).clone()
         model.load_state_dict(init_m2trans(cfg, seed=1, device=dev).state_dict())
         got = gf(x).clone()
         want = serving_forward(model, x, cfg, kern, False)
-        need(gf.captures == 2 and torch.equal(got, want)
+        need(gf.captures == 1 and gf.refreshes == 1 and torch.equal(got, want)
              and not torch.equal(got, before),
-             f"after load_state_dict: captures {gf.captures}, replay vs fresh "
-             f"eager max {errs(got, want)[0]}")
-        model.load_state_dict(init_m2trans(cfg, seed=0, device=dev).state_dict())
-        parts.append("recaptured after load_state_dict, equal to fresh eager")
+             f"after load_state_dict: captures {gf.captures}, refreshes "
+             f"{gf.refreshes}, replay vs fresh eager max {errs(got, want)[0]}")
+        model.load_state_dict(init_m2trans(cfg, seed=0, device=dev).state_dict(),
+                              assign=True)
+        got = gf(x).clone()
+        want = serving_forward(model, x, cfg, kern, False)
+        need(gf.captures == 2 and torch.equal(got, want),
+             f"after load_state_dict(assign=True): captures {gf.captures}, replay "
+             f"vs fresh eager max {errs(got, want)[0]}")
+        parts.append("kept across load_state_dict in place (operands refreshed), "
+                     "recaptured after assign=True, equal to fresh eager")
         # the memory the two graphs of one runner hold: reserved by the
         # allocator before and after their captures, its free cache released
         del gf, gf32
@@ -1599,8 +1614,8 @@ def graphed_train_phase(dev, lr_b, hr_b, work) -> dict:
                 split[k] = statistics.median(split[k][1:] or split[k])
             split["capture"] = statistics.mean(split["capture"])
             # whole evaluations: eager, replayed (graphs already captured), and
-            # after the weights moved (a validation in training: every shape
-            # captured again)
+            # after the weights moved in place (a validation in training: the
+            # kept operands refreshed, nothing captured)
             whole = {}
             for label, graphs in (("eager", False), ("replay", True)):
                 t1 = time.perf_counter()
@@ -1612,11 +1627,12 @@ def graphed_train_phase(dev, lr_b, hr_b, work) -> dict:
                  f"eval {dtype}: graphs {out[dtype]['replay']} vs eager {out[dtype]['eager']}")
             with torch.no_grad():
                 for p in model.parameters():
-                    p.add_(0)  # a write in place: the graphs are stale
+                    p.add_(0)  # a write in place: the operands are refreshed
             t1 = time.perf_counter()
             evaluate_all(model, cfg, sets, full_metrics=True)
             torch.cuda.synchronize()
-            whole["after a weight write"] = (time.perf_counter() - t1) / len(eval_shapes)
+            whole["after a weight write (no capture)"] = (
+                time.perf_counter() - t1) / len(eval_shapes)
             res = subprocess.run([sys.executable, "-m", "m2trans_tpu_torch.test", "--config",
                                   yml, "--model_path", pt, "--dtype", dtype], cwd=ROOT,
                                  capture_output=True, text=True, timeout=600)
@@ -1637,6 +1653,283 @@ def graphed_train_phase(dev, lr_b, hr_b, work) -> dict:
           + "; python -m m2trans_tpu_torch.test (graphs) prints the eager evaluation's "
           f"lines; phase 23 in {time.perf_counter() - t0:.1f} s")
     return capture_launches[TRAIN_KINDS[0]]
+
+
+def graphed_aug_eval_phase(dev, lr_b, hr_b, work) -> dict:
+    """Phase 24: the augmentations inside the train step's graph, the
+    validation graphs that outlive Adam's updates and the metrics graphs.
+    (a) The x4 L1 step in bf16 with the kernels and the recipe's step
+    (MedCLIP f32), cutmix, cutout and noise applied inside the graph from
+    their packed draws, 8 steps (cutout in the first 6: two graphs), replay
+    against eager bit for bit (losses, parameters, Adam's state), how often
+    each augmentation fired, and 32 / 8 / 1 / 32 / 1 launches a capture;
+    (b) host ms of ``m2t::augment`` (``m2t::wait`` inside it: the staging
+    ring waiting for the device) and of the graphed device part, and event
+    ms a step; (c) the ``Trainer`` for 3 epochs with ``test_every`` 1 on a
+    set of two frame shapes (and its training panel), bf16 with the kernels
+    and f32: epochs 2 and 3 capture nothing, each validation equals an
+    eager validation of the same weights, the validation's s/frame by
+    epoch and split into copy-in, forward and metrics, ``memory_reserved``;
+    (d) the metrics graphs' per-frame rows against the eager rows (bit for
+    bit, else within 1e-6 relative). Returns the launches counted in the
+    L1 step's captures."""
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.data.augment import draw_augment
+    from m2trans_tpu_torch.data.pipeline import create_datasets
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.metrics import frame_metrics
+    from m2trans_tpu_torch.models.m2trans import init_m2trans, policy_from_config
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.train.evaluate import eval_runner, evaluate_all, metrics_runner
+    from m2trans_tpu_torch.train.graphed import COUNTED, LOSS_NAMES
+    from m2trans_tpu_torch.train.loop import Trainer, make_optimizer, make_train_step
+    from m2trans_tpu_torch.utils.staging import HostStager
+
+    t0 = time.perf_counter()
+    ship = load_config(os.path.join(ROOT, "configs", "M2Trans_x4.yml"))
+    aug = dict(cutmix=True, data_add_noise=True, dtype="bfloat16", use_pallas=True)
+    mcfg = MedCLIPConfig()
+    fn = SemanticLossFn(init_medclip(mcfg, seed=4, device=dev), mcfg,
+                        word_tokenizer(mcfg.text.vocab_size))
+    trng = np.random.default_rng(24)
+    ids = trng.integers(5, mcfg.text.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), np.int32)
+    ids[1, 40:] = mask[1, 40:] = 0
+    caps = {"input_ids": ids, "attention_mask": mask}
+    kinds = {TRAIN_KINDS[0]: (ship.replace(**aug), None),
+             TRAIN_KINDS[2]: (ship.replace(lambda_clip=0.01, **aug), fn)}
+    cut = int(0.1 * ship.patch_size // ship.scale)
+    steps = 8
+
+    def fired(base):  # steps in which cutmix, cutout and the noise fired
+        n = {"cutmix": 0, "cutout": 0, "noise": 0}
+        for i in range(steps):
+            (mix, holes, noise, _), _ = draw_augment(
+                np.random.default_rng(base + i), 2, 96, 96, cutmix=True,
+                cutout_len=cut if i < 6 else None, noise=True)
+            n["cutmix"] += int(mix[..., 0].any())
+            n["cutout"] += int(holes is not None and holes[..., 0].any())
+            n["noise"] += int(noise[0] != 0)
+        return n
+
+    base = next(b for b in range(240, 400, steps) if min(fired(b).values()) > 0)
+
+    def make(c, f, graphs):
+        m = init_m2trans(c, seed=0, device=dev)
+        opt = make_optimizer(c, m)
+        return m, opt, make_train_step(c, m, opt, f, graphs=graphs)
+
+    def run_steps(c, f, graphs):
+        m, opt, st = make(c, f, graphs)
+        losses = []
+        for i in range(steps):
+            aux = st(lr_b, hr_b, captions=caps if f is not None else None,
+                     rng=np.random.default_rng(base + i), do_cutout=i < 6)
+            losses.append(torch.stack([aux[k] for k in LOSS_NAMES]))
+        torch.cuda.synchronize()
+        return [torch.stack(losses)] + [p.detach().clone() for p in m.parameters()] + [
+            v.clone() for p in m.parameters() if p in opt.state
+            for v in opt.state[p].values()], st
+
+    checks, launches_l1, host, events = {}, None, {}, {}
+    labels = ("m2t::augment", "m2t::wait", "m2t::device_step")
+    for name, (c, f) in kinds.items():
+        eager, _ = run_steps(c, f, False)
+        again, _ = run_steps(c, f, False)
+        for g in COUNTED.values():
+            g.launches = 0
+        graphed, st = run_steps(c, f, True)
+        counted = {k: g.launches for k, g in COUNTED.items()}
+        runner = st.graphed
+        need((runner.captures, runner.replays) == (2, steps),
+             f"{name}: captures / replays {(runner.captures, runner.replays)}, want "
+             f"(2, {steps}): one graph with cutout, one without")
+        want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1, "cftm_branch_bwd": 32,
+                "tail_band_bwd": 1}
+        for key, got in runner.capture_launches.items():
+            need(got == want, f"{name}: a capture counted {got}, want {want}")
+        need(counted == {k: 2 * 2 * v for k, v in want.items()},
+             f"{name}: launches around the two captures {counted} (each the "
+             "side-stream step and the capture; a replay counts none)")
+        need(all(torch_isfinite(t) for t in graphed), f"{name}: not finite")
+        if all(torch.equal(a, b) for a, b in zip(eager, again)):
+            diff = [i for i, (a, b) in enumerate(zip(graphed, eager)) if not torch.equal(a, b)]
+            need(not diff, f"{name}: replay with the augmentations in the graph differs "
+                 f"from eager in {len(diff)} tensors (first {diff[:3]})")
+            checks[name] = f"bit for bit over {steps} steps"
+        else:
+            init = [p.detach() for p in init_m2trans(c, seed=0, device=dev).parameters()]
+            worst = max(rel_l2(a - p0, b - p0) for a, b, p0 in zip(
+                graphed[1:], eager[1:], init) if bool((b - p0).any()))
+            need(worst <= STEP_TOL, f"{name}: updates {worst:.3g} from eager's")
+            checks[name] = f"eager not deterministic; updates within rel L2 {worst:.3g}"
+        if launches_l1 is None:
+            launches_l1 = dict(want)
+        m, opt, st_g = make(c, f, True)
+        rng = np.random.default_rng(7)
+
+        def call():
+            return st_g(lr_b, hr_b, captions=caps if f is not None else None, rng=rng,
+                        do_cutout=True)
+
+        events[name] = time_ms(call, n=20)
+        host[name] = host_ms(call, labels, n=20)
+        del m, opt, st_g
+    need(host[TRAIN_KINDS[2]]["m2t::device_step"] < 8.0,
+         f"the recipe's graphed device part spends {host[TRAIN_KINDS[2]]} host ms "
+         "(with pageable copies it spent 14.8-15.8 ms waiting for the previous step)")
+    print(f"phase 24 augmentations in the graph (x4, 2x96x96 -> 384x384, {steps} steps, "
+          f"cutout in the first 6, draws from seeds {base}..{base + steps - 1}, fired "
+          f"{fired(base)}): replay vs eager " + "; ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; a capture counts {launches_l1}; host ms a step (profiler CPU view, 20 "
+          "steps) augment / of it wait / device part: " + "; ".join(
+              f"{k} " + " / ".join(fmt_ms(v[lab]) for lab in labels)
+              for k, v in host.items())
+          + "; event ms a step (median of 20): " + "; ".join(
+              f"{k} {v:.3f}" for k, v in events.items()))
+
+    # (c), (d): validations of a training run, and the metrics graphs
+    eval_hr = [(128, 96), (96, 160)]
+    lines = []
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        data = os.path.join(tmp, "data")
+        write_us1k_tree(data, np.random.default_rng(24), eval_hr=eval_hr[0])
+        img = np.random.default_rng(25).integers(0, 256, (*eval_hr[1], 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(data, "benchmark/UI5/HR/b1.jpg"))
+        Image.fromarray(img[::4, ::4]).save(os.path.join(data, "benchmark/UI5/LR_bicubic/X4/b1x4.jpg"))
+        with open(os.path.join(ROOT, "configs", "M2Trans_x4.yml")) as fh:
+            ycfg = yaml.safe_load(fh)
+
+        class Writer:  # the panels reach the writer; the training panel replays
+            def add_image(self, *a, **k):
+                pass
+
+            def add_scalar(self, *a, **k):
+                pass
+
+        for dtype in ("bfloat16", "float32"):
+            ycfg.update(dtype=dtype, use_pallas=dtype == "bfloat16", data_path=data,
+                        train_range=[1, 4], data_repeat=8, epochs=3, log_every=4,
+                        test_every=1, eval_sets=["CCA-US"], threads=2,
+                        log_path=os.path.join(tmp, f"exp_{dtype}"))
+            yml = os.path.join(tmp, f"train_{dtype}.yml")
+            with open(yml, "w") as fh:
+                yaml.dump(ycfg, fh)
+            cfg = load_config(yml)
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            with contextlib.redirect_stdout(buf):
+                trainer = Trainer(cfg, device=dev, writer=Writer())
+                policy = policy_from_config(cfg)
+                fwd, met = eval_runner(trainer.model, cfg, policy), metrics_runner(
+                    trainer.model, cfg, False)
+                n_frames = len(trainer.eval_sets[0]["dataset"])
+                record, validate = [], trainer._validate
+
+                def recorded(epoch):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    validate(epoch)
+                    torch.cuda.synchronize()
+                    secs = (time.perf_counter() - t1) / n_frames
+                    record.append((fwd.captures, met.captures, fwd.refreshes, secs,
+                                   trainer.stat_dict["CCA-US"]["psnrs"][-1],
+                                   trainer.stat_dict["CCA-US"]["ssims"][-1],
+                                   evaluate_all(trainer.model, cfg, trainer.eval_sets,
+                                                graphs=False)["CCA-US"]))
+
+                trainer._validate = recorded
+                for g in COUNTED.values():
+                    g.launches = 0
+                trainer.run()
+                counted = {k: g.launches for k, g in COUNTED.items()}
+                sys.stdout.log.close()
+            torch.cuda.synchronize()
+            r1 = torch.cuda.memory_reserved()
+            need(len(record) == 3, f"{dtype}: {len(record)} validations")
+            caps0 = record[0][:2]
+            need(all(r[:2] == caps0 for r in record[1:]),
+                 f"{dtype}: validations of epochs 2 and 3 captured "
+                 f"{[r[:2] for r in record]} (forward, metrics captures after each)")
+            need(caps0 == (len(eval_hr) + 1, len(eval_hr)),
+                 f"{dtype}: the first validation left {caps0} captures, want "
+                 f"{len(eval_hr)} + the panel's shape and {len(eval_hr)}")
+            for r in record:
+                need((r[4], r[5]) == (r[6]["psnr"], r[6]["ssim"]),
+                     f"{dtype}: validation {r[4:6]} vs an eager validation of the "
+                     f"same weights {r[6]}")
+            k = int(dtype == "bfloat16")
+            need(all(v > 0 for v in counted.values()) if k else not any(counted.values()),
+                 f"{dtype}: kernel launches in the Trainer's run {counted}")
+            val_lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[CCA-US")]
+            need(len(val_lines) == 3 and all(
+                ln.startswith(f"[CCA-US-X4], PSNR/SSIM: {r[6]['psnr']:.4f}/{r[6]['ssim']:.4f} ")
+                for ln, r in zip(val_lines, record)), f"{dtype}: printed {val_lines}")
+            # the split a frame, the graphs captured: copy-in, forward, metrics
+            model, ds = trainer.model, trainer.eval_sets[0]["dataset"]
+            stager, split = HostStager(dev), {"copy-in": [], "forward": [], "metrics": []}
+            full = metrics_runner(model, cfg, True)
+            worst = 0.0
+            with torch.inference_mode():
+                for rep in range(3):
+                    for lr, hr, _ in ds:
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        lr_t, hr_t = stager.stage([lr, hr])
+                        torch.cuda.synchronize()
+                        t2 = time.perf_counter()
+                        sr = fwd(lr_t)
+                        torch.cuda.synchronize()
+                        t3 = time.perf_counter()
+                        row = met(sr, hr_t)
+                        torch.cuda.synchronize()
+                        t4 = time.perf_counter()
+                        if rep:
+                            for key, t in (("copy-in", t2 - t1), ("forward", t3 - t2),
+                                           ("metrics", t4 - t3)):
+                                split[key].append(t)
+                        for runner_m, fm in ((met, False), (full, True)):
+                            got = runner_m(sr, hr_t).clone()
+                            want = frame_metrics(sr.clone(), hr_t, scale=cfg.scale,
+                                                 colors=cfg.colors, rgb_range=cfg.rgb_range,
+                                                 full_metrics=fm)
+                            if not torch.equal(got, want):
+                                rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)
+                                             ).max())
+                                worst = max(worst, rel)
+                        del row
+            need(worst <= 1e-6, f"{dtype}: metrics graph vs eager rows differ by "
+                 f"{worst:.3g} relative (> 1e-6)")
+            need(fwd.eager_calls == 0 and met.eager_calls == 0 and full.eager_calls == 0,
+                 f"{dtype}: eager calls {fwd.eager_calls}, {met.eager_calls}, "
+                 f"{full.eager_calls}")
+            t1 = time.perf_counter()
+            create_datasets(cfg, train=False)
+            reads = (time.perf_counter() - t1) / n_frames
+            lines.append(
+                f"{dtype}: validation s/frame epoch 1 (captures) {record[0][3]:.4f}, "
+                f"epochs 2 / 3 {record[1][3]:.4f} / {record[2][3]:.4f}; captures after "
+                f"each (forward, metrics) {[r[:2] for r in record]}, operand refreshes "
+                f"{record[-1][2]}; split s/frame (median, replays) reads at set-up "
+                f"{reads:.4f}, " + ", ".join(
+                    f"{key} {statistics.median(v):.4f}" for key, v in split.items())
+                + "; metrics rows graph vs eager "
+                + ("bit for bit" if worst == 0.0 else f"max rel {worst:.3g}")
+                + f"; PSNR/SSIM {[r[4:6] for r in record]} = eager; kernel launches in "
+                f"the run {counted}; memory_reserved MiB {r0 / 2**20:.1f} -> "
+                f"{r1 / 2**20:.1f}")
+            del trainer, model, fwd, met, full
+    print("phase 24 Trainer x4 3 epochs, test_every 1, CCA-US of 2 shapes (LR 32x24, "
+          "24x40), the training panel through the eval runner: " + "; ".join(lines)
+          + f"; phase 24 in {time.perf_counter() - t0:.1f} s")
+    return launches_l1
 
 
 def run() -> dict:
@@ -2335,6 +2628,11 @@ def run() -> dict:
     # forward's graphs and the eval split (the launch counts are set to 0
     # just before each capture and read just after)
     train_graph_launches = graphed_train_phase(dev, lr_b, hr_b, work)
+
+    # 24. the augmentations inside the train step's graph, validations that
+    # replay across Adam's updates, the metrics graphs (the launch counts
+    # set to 0 just before each graphed run and read just after)
+    graphed_aug_eval_phase(dev, lr_b, hr_b, work)
 
     need_no_reference_package()
 

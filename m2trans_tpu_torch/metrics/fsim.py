@@ -125,6 +125,20 @@ def _pc_bank(rows: int, cols: int, device: str):
             tuple(torch.from_numpy(c).to(dev) for c in consts))
 
 
+def pooled_size(h: int, w: int):
+    """The (rows, cols) FSIM works at for an (h, w) frame: after the F x F
+    average pool, F = max(1, round(min(h, w) / 256))."""
+    f = max(1, round(min(h, w) / 256))
+    return h // f, w // f
+
+
+def bank_for_frame(h: int, w: int, device):
+    """The filter bank and noise constants FSIM reads for an (h, w) frame
+    on ``device`` (what a captured FSIM reads: hold it for the graph's
+    life, the cache may drop it)."""
+    return _pc_bank(*pooled_size(h, w), str(device))
+
+
 def _median(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis; the mean of the two middle values where
     the count is even (numpy's rule; ``torch.median`` takes the lower)."""

@@ -19,33 +19,39 @@ state. The f32 policy's forward sets its TF32-off flags
 (``m2trans.py::_no_tf32``) inside the captured function, so the captured
 cuBLAS and cuDNN calls are the TF32-off ones.
 
-A graph replays the pointers it was captured with: the weights, and the
-operands ``_prepared`` laid out from them. Every graph is therefore keyed
-by :func:`weights_key`, the storage pointer and version counter of every
-parameter (``models/m2trans.py::param_key``, the key ``_prepared`` keeps its
-operands by); when any differs from the key at capture (an in-place
-``load_state_dict``, an optimizer step, a move), all graphs are dropped and
-the next call captures again. A stale graph is never replayed. Parameters
-made under ``torch.inference_mode`` have no version counter: a write into
-one in place, which only inference mode allows, is not seen, by the graphs
-as by ``_prepared``.
+A graph replays the pointers it was captured with, as a JAX executable
+reads its arguments: the weights, and the operands ``_prepared`` laid out
+from them (``models/m2trans.py``: the bf16 qkv weights, K3's weight and
+bias). A graph outlives a write into the weights in place (an optimizer
+step, ``load_state_dict`` into the same model): before a replay whose
+:func:`weights_key` (pointer and version counter of every parameter) has
+moved, the kept operands are rewritten in place, once, eagerly
+(``refresh_operands``), and the graph reads the new weights. The graphs
+are keyed by storage (:func:`storage_key`: the parameters' pointers and
+those of the operands of the runner's dtype); when that moves (a
+parameter replaced, the model moved) every graph is dropped and the next
+call captures again, so a stale graph is never replayed. Each graph
+holds the operands it reads, so none is freed under it. Parameters made
+under ``torch.inference_mode`` have no version counter: a write into one
+in place, which only inference mode allows, is not seen, by the graphs as
+by ``_prepared``.
 
 All graphs of one runner share one memory pool and are replayed on one
 stream, so their intermediates share memory; the tensor a call returns is
 the graph's static output and stays valid until the next call of the runner
 (of any shape). With ``max_graphs`` a runner holds at most that many
-shapes' graphs: capturing one more drops the least recently replayed, whose
-static tensors the pool then reuses. A capture with no graph left takes a
-new pool: the allocator refuses a capture into a pool that no graph uses
-while a tensor of it is still alive (a returned output the caller holds),
-and the old pool is freed with its last tensor. A CPU model runs the same
-forward eagerly. There is no fallback: a capture or a replay that fails
-raises.
+shapes' graphs: a shape beyond them runs the eager forward on every call,
+so no shape is captured twice while the storage stands (a runner kept for
+a whole training run captures each validation shape once). A capture with
+no graph left takes a new pool: the allocator refuses a capture into a pool
+that no graph uses while a tensor of it is still alive (a returned output
+the caller holds), and the old pool is freed with its last tensor. A CPU
+model runs the same forward eagerly. There is no fallback: a capture or a
+replay that fails raises.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -54,8 +60,10 @@ from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
     M2Trans,
+    cached_operands,
     m2trans_apply_microbatched,
     param_key,
+    refresh_operands,
 )
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
@@ -90,6 +98,14 @@ def weights_key(model: torch.nn.Module) -> Tuple[Tuple[int, int], ...]:
     return tuple(param_key(p) for p in model.parameters())
 
 
+def storage_key(model: torch.nn.Module, dtype) -> Tuple[int, ...]:
+    """The storage a graph of ``model``'s forward in ``dtype`` reads: every
+    parameter's pointer and those of the kept operands of that dtype."""
+    return (*(p.data_ptr() for p in model.parameters()),
+            *(o.data_ptr() for op in cached_operands(model) if op.dtype == dtype
+              for o in op.ops))
+
+
 def capture(fn: Callable[[], torch.Tensor], pool):
     """``fn()`` run once on a side stream, then captured; returns the graph
     and the tensor ``fn`` returned during capture (its static output)."""
@@ -105,10 +121,11 @@ def capture(fn: Callable[[], torch.Tensor], pool):
 
 
 class _Entry:
-    """One captured shape: the static input, the graph, its static output."""
+    """One captured shape: the static input, the graph, its static output,
+    and the kept operands the graph reads."""
 
-    def __init__(self, inp: torch.Tensor, graph, out: torch.Tensor):
-        self.inp, self.graph, self.out = inp, graph, out
+    def __init__(self, inp: torch.Tensor, graph, out: torch.Tensor, held=()):
+        self.inp, self.graph, self.out, self.held = inp, graph, out, held
 
 
 class GraphedForward:
@@ -120,9 +137,11 @@ class GraphedForward:
       policy: numerics policy.
       output_u8: quantise the output to u8 on the device.
       max_graphs: the most shapes whose graphs are kept (None: no bound);
-        the least recently replayed is dropped first.
+        a shape beyond them runs eagerly.
 
-    ``captures`` and ``replays`` count what it did; ``capture_launches``
+    ``captures``, ``replays`` and ``eager_calls`` (shapes beyond
+    ``max_graphs``) count what it did; ``refreshes`` the operand
+    rewrites before a replay after a weight write; ``capture_launches``
     holds, for each captured shape, the launches of the kernel wrappers
     during the capture itself (the side-stream run before it excluded):
     the kernels each replay runs.
@@ -134,44 +153,57 @@ class GraphedForward:
         self.output_u8 = output_u8
         self.max_graphs = max_graphs
         self.device = next(model.parameters()).device
+        self.graphs = self.device.type == "cuda"  # False: the eager forward
         self._pool = None  # the live graphs' memory pool
-        self._graphs: "OrderedDict[Tuple[int, ...], _Entry]" = OrderedDict()
-        self._key = None
-        self.captures = self.replays = 0
+        self._graphs: Dict[Tuple[int, ...], _Entry] = {}
+        self._weights = self._storage = None  # the keys the graphs stand on
+        self.captures = self.replays = self.eager_calls = self.refreshes = 0
         self.capture_launches: Dict[Tuple[int, ...], Dict[str, int]] = {}
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return serving_forward(self.model, x, self.cfg, self.policy,
                                self.output_u8)
 
-    def _entry(self, shape: Tuple[int, ...]) -> _Entry:
-        """The graph for ``shape``; captured now if there is none, or if a
-        parameter changed since the graphs were captured (all are dropped)."""
-        key = weights_key(self.model)
-        if key != self._key:
+    def _ready(self) -> None:
+        """Refresh the kept operands after a weight write in place; drop
+        every graph when the storage they read has moved."""
+        weights = weights_key(self.model)
+        if weights != self._weights:
+            refresh_operands(self.model)
+            self._weights = weights
+            self.refreshes += bool(self._graphs)
+        storage = storage_key(self.model, self.policy.dtype)
+        if storage != self._storage:
             self._graphs.clear()
-            self._key = key
+            self._storage = storage
+
+    def _entry(self, shape: Tuple[int, ...]) -> Optional[_Entry]:
+        """The graph for ``shape``, captured now if it has none; None for a
+        shape beyond ``max_graphs``."""
+        self._ready()
         if shape in self._graphs:
-            self._graphs.move_to_end(shape)
-        else:
-            if self.max_graphs is not None and len(self._graphs) >= self.max_graphs:
-                self._graphs.popitem(last=False)
-            if not self._graphs:
-                self._pool = torch.cuda.graph_pool_handle()
-            inp = torch.zeros(shape, dtype=torch.float32, device=self.device)
-            counts = []  # the wrappers' launches in each call of fn
+            return self._graphs[shape]
+        if self.max_graphs is not None and len(self._graphs) >= self.max_graphs:
+            return None
+        if not self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+        inp = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        counts = []  # the wrappers' launches in each call of fn
 
-            def fn():
-                before = {k: f.launches for k, f in COUNTED.items()}
-                out = self._forward(inp)
-                counts.append({k: f.launches - before[k]
-                               for k, f in COUNTED.items()})
-                return out
+        def fn():
+            before = {k: f.launches for k, f in COUNTED.items()}
+            out = self._forward(inp)
+            counts.append({k: f.launches - before[k] for k, f in COUNTED.items()})
+            return out
 
-            graph, out = capture(fn, self._pool)
-            self.capture_launches[shape] = counts[-1]  # the captured call's
-            self._graphs[shape] = _Entry(inp, graph, out)
-            self.captures += 1
+        graph, out = capture(fn, self._pool)
+        self.capture_launches[shape] = counts[-1]  # the captured call's
+        held = [op for op in cached_operands(self.model) if op.dtype == self.policy.dtype]
+        self._graphs[shape] = _Entry(inp, graph, out, held)
+        self.captures += 1
+        # the capture's first use built the operands: the keys now include them
+        self._weights = weights_key(self.model)
+        self._storage = storage_key(self.model, self.policy.dtype)
         return self._graphs[shape]
 
     @torch.inference_mode()
@@ -179,10 +211,14 @@ class GraphedForward:
         """The forward of ``x`` (B, H, W, colors) f32. On a CUDA model ``x``
         may lie on the card or on the host (a pinned host tensor is copied
         in without a wait); the result is the graph's static output, valid
-        until the next call. On a CPU model: the eager forward."""
-        if self.device.type != "cuda":
+        until the next call (an eager result for a shape beyond
+        ``max_graphs``). On a CPU model: the eager forward."""
+        if not self.graphs:
             return self._forward(x)
         entry = self._entry(tuple(x.shape))
+        if entry is None:
+            self.eager_calls += 1
+            return self._forward(x.to(self.device, non_blocking=True))
         entry.inp.copy_(x, non_blocking=True)
         entry.graph.replay()
         self.replays += 1

@@ -51,7 +51,7 @@ from m2trans_tpu_torch.ops.halo_attention import halo_attention
 from m2trans_tpu_torch.ops.kernels.ff_conv import (
     ff_conv,
     ff_conv_plain,
-    ff_weight_hwio,
+    ff_weight_hwio_view,
 )
 from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch,
@@ -231,33 +231,87 @@ def param_key(p: torch.Tensor) -> Tuple[int, int]:
     return p.data_ptr(), 0 if p.is_inference() else p._version
 
 
-def _prepared(mod: nn.Module, slot: str, dtype, params, make):
-    """``make(*params)``, a kernel operand laid out from a module's
-    parameters. Where a gradient is wanted it is built through autograd;
-    otherwise it is kept on the module between calls (not in its
-    state_dict) and rebuilt when a parameter's :func:`param_key` changes."""
+class _Operands:
+    """Kernel operands laid out from a module's parameters: ``layout``
+    gives views of the parameters (differentiable), each operand is one of
+    them in ``dtype``, contiguous, in storage of its own."""
+
+    def __init__(self, dtype, params, layout):
+        self.dtype, self.params, self.layout = dtype, params, layout
+        self.key = self._key()
+        with torch.no_grad(), torch.inference_mode(False):
+            self.ops = tuple(torch.empty(v.shape, dtype=dtype, device=v.device).copy_(v)
+                             for v in self._views())
+
+    def _key(self):
+        return (self.dtype, *(param_key(p) for p in self.params))
+
+    def _views(self):
+        return self.layout(*(p.detach() for p in self.params))
+
+    def of(self, dtype, params) -> bool:
+        """Whether these are the operands of ``params`` in ``dtype``, in the
+        storage they were laid out from (perhaps written in place since)."""
+        return (dtype == self.dtype and all(a is b for a, b in zip(params, self.params))
+                and all(p.data_ptr() == k[0] for p, k in zip(params, self.key[1:])))
+
+    def refresh(self) -> None:
+        """Rewrite the operands in place from the parameters as they stand
+        (same storage, no new allocation; a graph that reads them sees the
+        new values). Never under inference mode: the operands are plain
+        tensors, whatever mode first built them."""
+        key = self._key()
+        if key != self.key:
+            with torch.no_grad(), torch.inference_mode(False):
+                for o, v in zip(self.ops, self._views()):
+                    o.copy_(v)
+            self.key = key
+
+
+def _prepared(mod: nn.Module, slot: str, dtype, params, layout):
+    """The kernel operands ``layout(*params)`` (a tuple of views) in
+    ``dtype``, contiguous. Where a gradient is wanted they are built
+    through autograd; otherwise they are kept on the module between calls
+    (not in its state_dict, :class:`_Operands`): rewritten in place when a
+    parameter's :func:`param_key` moves and its storage does not (an
+    optimizer step, an in-place ``load_state_dict``), built anew when a
+    parameter is replaced or the dtype differs."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return make(*params)
-    key = (dtype, *(param_key(p) for p in params))
-    hit = mod.__dict__.get(slot)
-    if hit is None or hit[0] != key:
-        hit = mod.__dict__[slot] = (key, make(*(p.detach() for p in params)))
-    return hit[1]
+        return tuple(v.to(dtype).contiguous() for v in layout(*params))
+    cache = mod.__dict__.setdefault("_operands", {})
+    hit = cache.get(slot)
+    if hit is not None and hit.of(dtype, params):
+        hit.refresh()
+    else:
+        hit = cache[slot] = _Operands(dtype, tuple(params), layout)
+    return hit.ops
+
+
+def cached_operands(model: nn.Module):
+    """Every operand set ``_prepared`` keeps on ``model``'s modules."""
+    return [op for mod in model.modules()
+            for op in mod.__dict__.get("_operands", {}).values()]
+
+
+def refresh_operands(model: nn.Module) -> None:
+    """Rewrite every kept operand whose parameters were written in place
+    (:meth:`_Operands.refresh`), before a graph that reads them replays."""
+    for op in cached_operands(model):
+        op.refresh()
 
 
 def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
     """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns."""
-    return _prepared(
-        tb, "_qkv_cache", dtype, (tb.qkv_conv.weight,),
-        lambda w: w.reshape(w.shape[0], w.shape[1]).t().to(dtype).contiguous())
+    return _prepared(tb, "qkv", dtype, (tb.qkv_conv.weight,),
+                     lambda w: (w.reshape(w.shape[0], w.shape[1]).t(),))[0]
 
 
 def _ff_wb(blk: CFTM, dtype):
     """The feed-forward conv's (3, 3, C_in, C_out) weight and its bias in
     ``dtype``, K3's operands."""
     ff = blk.feed_forward[0]
-    return _prepared(blk, "_ff_cache", dtype, (ff.weight, ff.bias),
-                     lambda w, b: (ff_weight_hwio(w, dtype), b.to(dtype)))
+    return _prepared(blk, "ff", dtype, (ff.weight, ff.bias),
+                     lambda w, b: (ff_weight_hwio_view(w), b))
 
 
 def _rel(tb: TBlock):

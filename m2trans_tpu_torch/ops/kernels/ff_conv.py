@@ -35,10 +35,16 @@ import torch.nn.functional as F
 from m2trans_tpu_torch.ops.kernels import build
 
 
+def ff_weight_hwio_view(w_oihw: torch.Tensor) -> torch.Tensor:
+    """The module's (C_out, C_in, 3, 3) conv weight as a (3, 3, C_in,
+    C_out) view."""
+    return w_oihw.permute(2, 3, 1, 0)
+
+
 def ff_weight_hwio(w_oihw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """The module's (C_out, C_in, 3, 3) conv weight as K3's contiguous
     (3, 3, C_in, C_out)."""
-    return w_oihw.permute(2, 3, 1, 0).to(dtype).contiguous()
+    return ff_weight_hwio_view(w_oihw).to(dtype).contiguous()
 
 
 def ff_conv_plain(oc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,

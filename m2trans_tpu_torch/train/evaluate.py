@@ -11,21 +11,30 @@ By default frames are padded only by the model's own pad-to-32 rule, so the
 metrics compare with the reference's; ``bucket`` pads further.
 
 On a CUDA model the single-device forward replays a CUDA graph per LR
-shape (JAX ``fwd_single``, jitted per shape): :func:`eval_runner`, one
-``models/graphed.py::GraphedForward`` a (model, policy), kept on the model
-so that every set and every later evaluation of the same weights replays
-the graphs already captured. Its graphs are dropped when a weight moves
-(the next frame captures again) and bounded: at most ``EVAL_MAX_GRAPHS``
-shapes are held, the least recently replayed dropped first, so the pool
-holds at most that many shapes' static tensors (two serving captures, 8 x
-96x96 and 1 x 512x512, held ~380 MiB on the card, PERF.md §5). A capture
-costs about 3-7 eager forwards of its frame (PERF.md §6), so a set
-with a shape a frame pays a capture a frame; ``bucket`` pads the frames to
-a few shapes, which is what lets a set of mixed sizes replay its graphs.
-``graphs=False`` runs the forward eagerly, as the Trainer's validation
-does (``train/loop.py``): its weights moved since the last validation, so
-every shape would capture again. The sharded forward stays eager, as the
-JAX package's does.
+shape (JAX ``fwd_single``, jitted per shape, its weights an argument):
+:func:`eval_runner`, one ``models/graphed.py::GraphedForward`` a (model,
+policy), kept on the model so that every set, every later evaluation and
+every validation of a training run replays the graphs already captured.
+A weight written in place (an optimizer step, ``load_state_dict``) does
+not drop them: their operands are refreshed in place before the next
+replay. At most ``EVAL_MAX_GRAPHS`` shapes get a graph, the first ones
+seen; a later shape runs the eager forward for as long as the runner
+lives, so no shape is captured twice in a run and the pool holds at most
+that many shapes' static tensors (two serving captures, 8 x 96x96 and 1 x
+512x512, held ~380 MiB on the card, PERF.md §5). ``bucket`` pads the
+frames to a few shapes, which is what lets a set of mixed sizes replay
+graphs. The sharded forward stays eager, as the JAX package's does.
+
+The metrics (JAX ``_psnr_ssim`` and ``_fsim_pair``, jitted) are a graph
+per HR shape too (:class:`GraphedMetrics`, kept on the model beside the
+runner): ``metrics/eval_recipe.py::frame_metrics`` of a static SR (a copy
+of the forward's output, cropped under ``bucket``) and a static HR, whose
+(4,) row of PSNR, SSIM, FSIM and GMSD is kept on the device. Nothing is
+read on the host until the set's end, where the rows come back in one copy
+and are summed in f64 in frame order: the sums a per-frame host read
+gives. ``graphs=False`` runs the same functions eagerly (the CPU always
+does). Each frame's LR and HR reach the card through page-locked buffers
+(``utils/staging.py``).
 
 With more than one rank (``python -m torch.distributed.run``) every rank
 runs the same evaluation and bf16 frames of 512x512 pixels or more are
@@ -40,15 +49,16 @@ LR-up | SR | HR] panel, ``Valid_<set>/lr_sr_hr_image`` at step
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.images import write_image
-from m2trans_tpu_torch.metrics import fsim, gmsd, sr_eval_metrics
-from m2trans_tpu_torch.models.graphed import GraphedForward
+from m2trans_tpu_torch.metrics import METRICS, frame_metrics
+from m2trans_tpu_torch.metrics.fsim import bank_for_frame
+from m2trans_tpu_torch.models.graphed import GraphedForward, capture
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
@@ -57,9 +67,10 @@ from m2trans_tpu_torch.models.m2trans import (
     policy_from_config,
 )
 from m2trans_tpu_torch.parallel import spatial
+from m2trans_tpu_torch.utils.staging import HostStager
 
 
-EVAL_MAX_GRAPHS = 8  # shapes whose graphs an eval runner holds
+EVAL_MAX_GRAPHS = 8  # shapes an eval runner (and a metrics runner) captures
 
 
 def eval_runner(model: M2Trans, cfg: Config, policy: ComputePolicy) -> GraphedForward:
@@ -74,6 +85,83 @@ def eval_runner(model: M2Trans, cfg: Config, policy: ComputePolicy) -> GraphedFo
     return runner
 
 
+class _MetricsEntry:
+    def __init__(self, sr, hr, graph, out, held):
+        self.sr, self.hr, self.graph, self.out, self.held = sr, hr, graph, out, held
+
+
+class GraphedMetrics:
+    """:func:`~m2trans_tpu_torch.metrics.frame_metrics` replayed from a CUDA
+    graph per HR shape (at most ``max_graphs`` shapes, the first ones seen;
+    later shapes run eagerly), all in one pool. A call returns the graph's
+    static (4,) row, valid until the next call; on the CPU the eager row.
+    A graph holds the FSIM filter bank it reads (``metrics/fsim.py`` keeps
+    a few banks and drops the oldest)."""
+
+    def __init__(self, cfg: Config, full_metrics: bool, device,
+                 max_graphs: Optional[int] = EVAL_MAX_GRAPHS):
+        self.kw = dict(scale=cfg.scale, colors=cfg.colors, rgb_range=cfg.rgb_range,
+                       full_metrics=full_metrics)
+        self.device = torch.device(device)
+        self.graphs = self.device.type == "cuda"  # False: the eager row
+        self.max_graphs = max_graphs
+        self._pool = None
+        self._graphs: Dict[Tuple[int, ...], _MetricsEntry] = {}
+        self.captures = self.replays = self.eager_calls = 0
+
+    def _entry(self, shape: Tuple[int, ...]) -> Optional[_MetricsEntry]:
+        if shape in self._graphs:
+            return self._graphs[shape]
+        if self.max_graphs is not None and len(self._graphs) >= self.max_graphs:
+            return None
+        if not self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+        sr = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        hr = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        graph, out = capture(lambda: frame_metrics(sr, hr, **self.kw), self._pool)
+        held = bank_for_frame(shape[1], shape[2], self.device) \
+            if self.kw["full_metrics"] else None
+        self._graphs[shape] = _MetricsEntry(sr, hr, graph, out, held)
+        self.captures += 1
+        return self._graphs[shape]
+
+    @torch.inference_mode()
+    def __call__(self, sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
+        if not self.graphs:
+            return frame_metrics(sr, hr, **self.kw)
+        entry = self._entry(tuple(hr.shape))
+        if entry is None:
+            self.eager_calls += 1
+            return frame_metrics(sr, hr, **self.kw)
+        entry.sr.copy_(sr)
+        entry.hr.copy_(hr)
+        entry.graph.replay()
+        self.replays += 1
+        return entry.out
+
+
+def metrics_runner(model: M2Trans, cfg: Config, full_metrics: bool) -> GraphedMetrics:
+    """The metrics graphs of evaluations of ``model``: one
+    :class:`GraphedMetrics` a recipe, kept on the model beside
+    :func:`eval_runner`'s forwards."""
+    runners = model.__dict__.setdefault("_metric_runners", {})
+    key = (cfg.scale, cfg.colors, cfg.rgb_range, full_metrics)
+    if key not in runners:
+        runners[key] = GraphedMetrics(cfg, full_metrics, next(model.parameters()).device)
+    return runners[key]
+
+
+def set_means(rows: torch.Tensor) -> Dict[str, float]:
+    """The (N, 4) per-frame rows of a set, summed in f64 in frame order
+    (the sums a host float holds when each frame's values are read and
+    added as they come), over N."""
+    sums = [0.0] * len(METRICS)
+    for row in rows.cpu().tolist():
+        for k, v in enumerate(row):
+            sums[k] += v
+    return {name: s / rows.shape[0] for name, s in zip(METRICS, sums)}
+
+
 def make_forward_fn(model: M2Trans, cfg: Config,
                     policy: Optional[ComputePolicy] = None,
                     auto_space: bool = True, graphs: bool = True):
@@ -85,8 +173,7 @@ def make_forward_fn(model: M2Trans, cfg: Config,
     with ``graphs`` the single-device forward replays :func:`eval_runner`'s
     graphs; its result (f32) is valid until the next call."""
     policy = policy or policy_from_config(cfg)
-    cuda = next(model.parameters()).device.type == "cuda"
-    runner = eval_runner(model, cfg, policy) if graphs and cuda else None
+    runner = eval_runner(model, cfg, policy) if graphs else None  # eager on a CPU model
 
     def fwd(lr: torch.Tensor) -> torch.Tensor:
         mesh = (spatial.auto_space_mesh(lr.shape[1], lr.shape[2], cfg, policy)
@@ -124,18 +211,24 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
     like the reference."""
     fwd = make_forward_fn(model, cfg, policy, auto_space, graphs)
     dev = next(model.parameters()).device
-    sums = {"psnr": 0.0, "ssim": 0.0, "fsim": 0.0, "gmsd": 0.0}
+    if graphs:
+        metrics = metrics_runner(model, cfg, full_metrics)
+    else:
+        def metrics(sr, hr):
+            return frame_metrics(sr, hr, scale=cfg.scale, colors=cfg.colors,
+                                 rgb_range=cfg.rgb_range, full_metrics=full_metrics)
+    stager = HostStager(dev)
+    rows = []
     n = 0
     with torch.inference_mode():
         for lr, hr, name in dataset:
-            lr_t = torch.from_numpy(lr).to(dev)
+            lr_t, hr_t = stager.stage([lr, hr])
             if bucket > 0:
                 h0, w0 = lr_t.shape[1], lr_t.shape[2]
                 sr = fwd(pad_to_multiple(lr_t, bucket))[:, : h0 * cfg.scale,
                                                          : w0 * cfg.scale]
             else:
                 sr = fwd(lr_t)
-            hr_t = torch.from_numpy(hr).to(dev)
             if sr.shape != hr_t.shape:
                 raise ValueError(f"{name}: SR {tuple(sr.shape)} != HR "
                                  f"{tuple(hr_t.shape)}")
@@ -146,22 +239,17 @@ def evaluate_dataset(model: M2Trans, cfg: Config, dataset, *,
                                           cfg.rgb_range)
                 writer.add_image(f"Valid_{writer_tag}/lr_sr_hr_image", panel,
                                  writer_step + n, dataformats="HWC")
-            if full_metrics:
-                sums["fsim"] += float(fsim(hr_t, sr, data_range=cfg.rgb_range)[0])
-                sums["gmsd"] += float(gmsd(hr_t, sr, data_range=cfg.rgb_range)[0])
-            m = sr_eval_metrics(sr, hr_t, scale=cfg.scale, colors=cfg.colors,
-                                rgb_range=cfg.rgb_range)
-            sums["psnr"] += float(m["psnr"])
-            sums["ssim"] += float(m["ssim"])
+            rows.append(metrics(sr, hr_t).clone())
             n += 1
             if save_dir:
                 os.makedirs(save_dir, exist_ok=True)
                 save_image(sr[0].float().cpu().numpy(), os.path.join(save_dir, name))
-    out = {"psnr": round(sums["psnr"] / n + 5e-3, 2),
-           "ssim": round(sums["ssim"] / n + 5e-5, 4)}
+        means = set_means(torch.stack(rows))
+    out = {"psnr": round(means["psnr"] + 5e-3, 2),
+           "ssim": round(means["ssim"] + 5e-5, 4)}
     if full_metrics:
-        out["fsim"] = round(sums["fsim"] / n + 5e-5, 4)
-        out["gmsd"] = round(sums["gmsd"] / n + 5e-5, 4)
+        out["fsim"] = round(means["fsim"] + 5e-5, 4)
+        out["gmsd"] = round(means["gmsd"] + 5e-5, 4)
     return out
 
 

@@ -9,16 +9,22 @@ not the device, bounds it. :class:`GraphedTrainStep` captures the device
 part of the step, ``step_fn`` of ``train/loop.py::make_train_step``: the
 semantic loss's constant stage under ``no_grad``, the forward, L1 (+ the
 SR-side semantic loss), ``backward()`` and ``optimizer.step()``, into one
-``torch.cuda.CUDAGraph`` per key (LR shape, HR shape, sample mask present,
-crop offsets' and token arrays' shapes, that is the semantic loss on); all
-graphs share one memory pool.
+``torch.cuda.CUDAGraph`` per key: the shapes and dtypes of the inputs, and
+which are present (the sample mask; the crop offsets and tokens, that is
+the semantic loss on; cutmix, cutout and the noise, the JAX step's static
+``do_cutout`` among them); all graphs share one memory pool.
 
-What stays outside the graph, run before each replay: the augmentations'
-draws on the host generator and their applies (eager device ops writing
-the batch), the crop offsets' draw, and the copies into the static inputs:
-the LR and HR batch, the sample mask, the crop offsets as (n, B) int64
-device tensors and the token ids (a capture refuses a copy from pageable
-host memory, so none happens inside it).
+The graph also holds the augmentations (cutmix, cutout, the noise's add),
+applied to the batch from their draws in the fixed layout of
+``data/augment.py``, as the JAX step applies them inside its ``jax.jit``.
+What stays outside, run before each replay: the draws on the host
+generator, the noise's normal draw (a replay does not reseed a
+generator), and the copies into the static inputs: the LR and HR batch,
+the sample mask, the packed draws and the normal, the crop offsets as
+(n, B) int64 and the token ids as int64 device tensors. The caller stages
+the host arrays through page-locked buffers (``utils/staging.py``), so no
+copy makes the host wait for the previous step; a capture refuses a copy
+from pageable host memory, so none happens inside it.
 
 Capture, on a key's first call:
 
@@ -55,7 +61,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from m2trans_tpu_torch.models.graphed import COUNTED as FORWARD_COUNTED
@@ -69,14 +74,33 @@ COUNTED = {**FORWARD_COUNTED, "cftm_branch_bwd": cftm_branch_bwd,
 LOSS_NAMES = ("loss", "l1", "clip")
 
 
-def _int64(v, device) -> torch.Tensor:
-    """An integer array (numpy or a tensor) as int64 on ``device``."""
-    t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.int64))
-    return t.to(device=device, dtype=torch.int64)
+def _layout(x):
+    """The static part of an input: shapes and dtypes, and which parts are
+    present."""
+    if x is None or torch.is_tensor(x):
+        return None if x is None else (tuple(x.shape), x.dtype)
+    if isinstance(x, dict):
+        return tuple((k, _layout(x[k])) for k in sorted(x))
+    return (type(x).__name__, tuple(_layout(v) for v in x))
 
 
-def _fill(dst: torch.Tensor, src) -> None:
-    dst.copy_(src if torch.is_tensor(src) else torch.from_numpy(np.asarray(src)))
+def _clone(x):
+    """A copy of an input (tensors, None, and tuples or dicts of them)."""
+    if x is None or torch.is_tensor(x):
+        return None if x is None else x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    items = [_clone(v) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    """An input's tensors, in a fixed order."""
+    if x is None or torch.is_tensor(x):
+        return [] if x is None else [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    return [t for v in x for t in _tensors(v)]
 
 
 class _Entry:
@@ -91,10 +115,11 @@ class GraphedTrainStep:
     """``step_fn`` replayed from a CUDA graph per key.
 
     Args:
-      step_fn: ``(lr, hr, sample_mask, offsets, tokens) -> (3,) tensor`` of
-        loss, L1 and clip: the device part of a train step, ending in
-        ``optimizer.step()``; ``sample_mask``, ``offsets`` and ``tokens``
-        may be None.
+      step_fn: ``(lr, hr, sample_mask, offsets, tokens, aug) -> (3,)
+        tensor`` of loss, L1 and clip: the device part of a train step,
+        ending in ``optimizer.step()``; every input but ``lr`` and ``hr``
+        may be None, ``offsets`` and ``aug`` are tuples whose fields may be
+        None, ``tokens`` a dict of tensors.
       params: the parameters the optimizer updates.
       optimizer: capturable, every group's ``lr`` a tensor.
 
@@ -153,12 +178,7 @@ class GraphedTrainStep:
 
     def _capture(self, key: tuple, args: tuple) -> _Entry:
         self._check_optimizer()
-        lr, hr, mask, offsets, tokens = args
-        dev = lr.device
-        inputs = (lr.clone(), hr.clone(), None if mask is None else mask.clone(),
-                  None if offsets is None else tuple(_int64(o, dev) for o in offsets),
-                  None if tokens is None else {k: _int64(v, dev)
-                                               for k, v in tokens.items()})
+        inputs = _clone(args)
         snap = self._snapshot()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -180,31 +200,21 @@ class GraphedTrainStep:
 
     def __call__(self, lr: torch.Tensor, hr: torch.Tensor,
                  sample_mask: Optional[torch.Tensor] = None, offsets=None,
-                 tokens: Optional[Dict] = None) -> torch.Tensor:
-        """One step: the inputs (device tensors; ``offsets`` and
-        ``tokens`` numpy arrays or tensors) copied into the key's static
-        inputs, the graph replayed; returns loss, L1 and clip, (3,)."""
-        key = (tuple(lr.shape), tuple(hr.shape), sample_mask is not None,
-               None if offsets is None else tuple(tuple(o.shape) for o in offsets),
-               None if tokens is None else tuple(sorted(
-                   (k, tuple(v.shape)) for k, v in tokens.items())))
+                 tokens: Optional[Dict] = None, aug=None) -> torch.Tensor:
+        """One step: the inputs (device tensors, see ``step_fn``) copied into
+        the key's static inputs, the graph replayed; returns loss, L1 and
+        clip, (3,)."""
+        args = (lr, hr, sample_mask, offsets, tokens, aug)
+        key = _layout(args)
         if self._graphs and self._pointers() != self._ptrs:
             self._graphs.clear()
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(
-                key, (lr, hr, sample_mask, offsets, tokens))
+            entry = self._graphs[key] = self._capture(key, args)
             self._ptrs = self._pointers()
             self._grads_of = key
-        s_lr, s_hr, s_mask, s_off, s_tok = entry.inputs
-        s_lr.copy_(lr)
-        s_hr.copy_(hr)
-        if s_mask is not None:
-            s_mask.copy_(sample_mask)
-        for dst, src in zip(s_off or (), offsets or ()):
-            _fill(dst, src)
-        for k, dst in (s_tok or {}).items():
-            _fill(dst, tokens[k])
+        for dst, src in zip(_tensors(entry.inputs), _tensors(args)):
+            dst.copy_(src)
         entry.graph.replay()
         self.replays += 1
         torch.autograd.graph.increment_version(self.params)

@@ -6,17 +6,21 @@ input-noise augmentation, validation with Y-channel PSNR/SSIM after each
 ``test_every`` epochs, best-metric stat tracking, a reference-format
 checkpoint per validated epoch, resume from the newest.
 
-On one card each step's device part (the semantic loss's constant stage,
-the forward, the losses, the backward and Adam) replays a CUDA graph per
-batch layout, the JAX step's ``jax.jit`` (``train/graphed.py``); the
-draws and augmentations run eagerly before it. Validation runs its forward
-eagerly (see ``Trainer._validate``).
+On one card each step's device part (the augmentations, the semantic
+loss's constant stage, the forward, the losses, the backward and Adam)
+replays a CUDA graph per batch layout, the JAX step's ``jax.jit``
+(``train/graphed.py``); the draws run on the host before it, and every
+host array reaches the card through page-locked buffers
+(``utils/staging.py``), so the host runs ahead of the device. Validation
+and the training panel replay the eval graphs (``train/evaluate.py``),
+captured once a frame shape for the whole run.
 
 Numerics follow the JAX training policy (``policy_from_config(cfg)``,
 the JAX ``for_training=True``): the parameters stay f32 and the bf16 compute cast
 happens inside the forward; in bf16 with ``use_pallas`` the forward runs K1,
 K3 and K2 and the backward K1b and K2b. The step follows the JAX step's
-order: augment, the semantic loss's constant stage (text embedding, crop
+order: augment (from the packed draws, ``data/augment.py``), the
+semantic loss's constant stage (text embedding, crop
 offsets, HR-side similarities) without autograd, the forward,
 ``l1 + lambda_clip * clip`` with only the SR-side vision encoder
 differentiated, one backward, Adam. Every random draw (augmentation boxes,
@@ -46,8 +50,9 @@ the run's first epoch (host activity, and the card's where the model lies on
 one) and writes ``<profile_dir>/trace_rank<r>.json``, a Chrome trace a rank.
 An epoch of fewer than 11 steps is traced to its end (JAX leaves that trace
 running). A step's host work is labelled in the trace: ``m2t::augment``
-(the draws and the augmentations) and ``m2t::device_step`` (the graph's
-replay, or the eager device part). A process that has run ``torch.profiler`` launches
+(the draws, the noise's normal draw, and the staging of the draws, crop
+offsets and tokens) and ``m2t::device_step`` (the graph's replay, or the
+eager device part with the augmentations' applies). A process that has run ``torch.profiler`` launches
 kernels more slowly afterwards, so time nothing in it after a traced run.
 """
 
@@ -64,14 +69,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.data.augment import (
-    cutmix_apply,
-    cutmix_draw,
-    cutout_apply,
-    cutout_draw,
-    gaussian_noise,
-    noise_draw,
-)
+from m2trans_tpu_torch.data.augment import Augment, augment_apply, draw_augment, normal_draw
 from m2trans_tpu_torch.data.pipeline import create_datasets, rank_rows
 from m2trans_tpu_torch.losses.pixel import l1_loss
 from m2trans_tpu_torch.models.m2trans import (
@@ -83,7 +81,7 @@ from m2trans_tpu_torch.models.m2trans import (
 from m2trans_tpu_torch.ops.resize import bilinear_resize
 from m2trans_tpu_torch.parallel import mesh as mesh_lib
 from m2trans_tpu_torch.train import checkpoint as ckpt_lib
-from m2trans_tpu_torch.train.evaluate import evaluate_all
+from m2trans_tpu_torch.train.evaluate import eval_runner, evaluate_all
 from m2trans_tpu_torch.train.graphed import LOSS_NAMES, GraphedTrainStep
 from m2trans_tpu_torch.train.schedule import cosine_annealing_lr
 from m2trans_tpu_torch.utils.experiment import (
@@ -91,6 +89,7 @@ from m2trans_tpu_torch.utils.experiment import (
     get_stat_dict,
     setup_experiment,
 )
+from m2trans_tpu_torch.utils.staging import HostStager
 
 
 def _comparison_panel(lr_np: np.ndarray, sr_np: np.ndarray, hr_np: np.ndarray,
@@ -142,7 +141,8 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
                     semantic_loss_fn: Optional[Callable] = None, *,
                     graphs: bool = True) -> Callable:
     """One step in the JAX step's order (JAX loop.py:90-146): cutmix,
-    cutout (only with ``do_cutout``), input noise, the semantic loss's
+    cutout (only with ``do_cutout``), input noise (``data/augment.py``'s
+    applies, from draws on the host in a fixed layout), the semantic loss's
     constant stage under ``torch.no_grad()``, the forward under the training
     policy, ``l1 + lambda_clip * clip`` (L1 the masked mean over valid
     samples when a sample mask is given), one backward, Adam. ``rng`` is the
@@ -151,13 +151,15 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
     which the semantic loss is 0. Returns the loss tensors (not
     synchronised).
 
-    The draws and the augmentations run eagerly; the rest, from the
-    constant stage to Adam, is the step's device part. On a CUDA model in
-    one process with ``graphs`` (the default) the device part is replayed
-    from a CUDA graph per batch layout (``train/graphed.py``, the JAX
-    step's ``jax.jit``; ``step.graphed`` is its runner). ``graphs=False``
-    runs it eagerly, as the CPU and the data-parallel steps always do; the
-    eager and the replayed step agree bit for bit.
+    The draws (and the noise's normal draw on the device, from the seed
+    drawn on the host) run eagerly, and their arrays, the crop offsets and
+    the token ids are staged through page-locked buffers; the rest, from
+    the augmentations' applies to Adam, is the step's device part. On a
+    CUDA model in one process with ``graphs`` (the default) the device part
+    is replayed from a CUDA graph per batch layout (``train/graphed.py``,
+    the JAX step's ``jax.jit``; ``step.graphed`` is its runner).
+    ``graphs=False`` runs it eagerly, as the CPU and the data-parallel steps
+    always do; the eager and the replayed step agree bit for bit.
 
     Data parallelism (a default group of more than one rank): the step
     takes the global batch (and its captions), augments it and draws the
@@ -184,9 +186,13 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         def forward(x):
             return m2trans_apply(model, x, cfg, policy)
 
-    def device_step(lr_img, hr_img, sample_mask, offsets, captions) -> torch.Tensor:
-        """The constant stage, forward, losses, backward and Adam on this
-        rank's rows; (3,) loss, L1, clip."""
+    def device_step(lr_img, hr_img, sample_mask, offsets, captions, aug) -> torch.Tensor:
+        """The augmentations of the global batch, then the constant stage,
+        forward, losses, backward and Adam on this rank's rows; (3,) loss,
+        L1, clip."""
+        lr_img, hr_img = augment_apply(lr_img, hr_img, aug, cfg.scale)
+        rows = rank_rows(lr_img.shape[0], rank, ranks)
+        lr_img, hr_img = lr_img[rows], hr_img[rows]
         # the semantic loss's constant stage carries no d/d(sr): no graph
         # (no_grad, not inference_mode: its tensors enter the loss below)
         clip_const = None
@@ -219,6 +225,10 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
             device_step, [p for g in optimizer.param_groups for p in g["params"]],
             optimizer)
 
+    stager = HostStager(dev)
+    normals: Dict[tuple, torch.Tensor] = {}  # the noise's draw, a batch shape
+    gen = torch.Generator(device=dev)  # reseeded for each normal draw
+
     def train_step(lr_img: torch.Tensor, hr_img: torch.Tensor,
                    sample_mask: Optional[torch.Tensor] = None, *,
                    captions: Optional[Dict[str, np.ndarray]] = None,
@@ -228,28 +238,38 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         b, lh, lw = lr_img.shape[:3]
         rows = rank_rows(b, rank, ranks)
         with record_function("m2t::augment"):
-            if cfg.cutmix:
-                lr_img, hr_img = cutmix_apply(
-                    lr_img, hr_img, cutmix_draw(rng, b, lh, lw), cfg.scale)
-            if do_cutout:
-                lr_img = cutout_apply(lr_img, cutout_draw(rng, b, lh, lw, cutout_len))
-            if cfg.data_add_noise:
-                noise = noise_draw(rng)
-                if noise is not None:
-                    lr_img = gaussian_noise(lr_img, *noise)
-
-        offsets = None
-        if clip_on and captions is not None:  # drawn for the global batch
-            offsets = semantic_loss_fn.draw_offsets(rng, b, *hr_img.shape[1:3])
-            offsets = tuple(o[:, rows] for o in offsets)
-            captions = {k: np.asarray(v)[rows] for k, v in captions.items()}
-        lr_img, hr_img = lr_img[rows], hr_img[rows]
+            drawn, seed = draw_augment(rng, b, lh, lw, cutmix=cfg.cutmix,
+                                       cutout_len=cutout_len if do_cutout else None,
+                                       noise=cfg.data_add_noise)
+            host = [a for a in drawn if a is not None]
+            if clip_on and captions is not None:  # drawn for the global batch
+                offsets = semantic_loss_fn.draw_offsets(rng, b, *hr_img.shape[1:3])
+                host += [np.asarray(o)[:, rows].astype(np.int64) for o in offsets]
+                host += [np.asarray(captions[k])[rows].astype(np.int64)
+                         for k in sorted(captions)]
+            staged = iter(stager.stage(host))
+            mix, holes, noise = (None if a is None else next(staged)
+                                 for a in (drawn.mix, drawn.holes, drawn.noise))
+            normal = None
+            if noise is not None:
+                normal = normals.get(tuple(lr_img.shape))
+                if normal is None:
+                    normal = normals[tuple(lr_img.shape)] = torch.zeros(
+                        lr_img.shape, dtype=lr_img.dtype, device=lr_img.device)
+                if seed is not None:
+                    normal_draw(normal, seed, gen)
+            offsets = tokens = None
+            if clip_on and captions is not None:
+                offsets = (next(staged), next(staged))
+                tokens = {k: next(staged) for k in sorted(captions)}
+        aug = Augment(mix, holes, noise, normal)
         with record_function("m2t::device_step"):
-            run = device_step if graphed is None else graphed
-            out = run(lr_img, hr_img, sample_mask, offsets, captions)
+            run = train_step.graphed or device_step
+            out = run(lr_img, hr_img, sample_mask, offsets, tokens, aug)
         return dict(zip(LOSS_NAMES, out.unbind()))
 
     train_step.graphed = graphed
+    train_step.device_step = device_step
     return train_step
 
 
@@ -265,7 +285,9 @@ class Trainer:
     group timeout while rank 0 validates alone. On one card each step
     replays a CUDA graph (``make_train_step``); ``graphs=False`` runs it
     eagerly, for comparisons. The losses are summed on the device in f64
-    and read at each ``log_every`` step, not every step."""
+    and read at each ``log_every`` step, not every step. The batches reach
+    the card through page-locked buffers (``utils/staging.py``), so the host
+    does not wait for the previous step."""
 
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
                  semantic_loss_fn: Optional[Callable] = None, writer: Any = None,
@@ -318,6 +340,8 @@ class Trainer:
 
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
                                           semantic_loss_fn, graphs=graphs)
+        self.graphs = graphs
+        self.stager = HostStager(self.device)
 
         # captions for the semantic loss (reference train.py:156-157, 189-193)
         self.captions = None
@@ -333,9 +357,8 @@ class Trainer:
 
     def step(self, it: int, batch, do_cutout: bool = False) -> Dict[str, torch.Tensor]:
         """One train step on the loader's ``it``-th batch of the epoch."""
-        lr_img = torch.from_numpy(batch[0]).to(self.device)
-        hr_img = torch.from_numpy(batch[1]).to(self.device)
-        mask = torch.from_numpy(batch[2]).to(self.device) if len(batch) > 2 else None
+        lr_img, hr_img, *mask = self.stager.stage(batch[:3])
+        mask = mask[0] if mask else None
         caps = self._batch_captions(it, batch[0].shape[0])
         tokens = self.semantic_loss_fn.tokenize(caps) if caps is not None else None
         return self.train_step(lr_img, hr_img, mask, captions=tokens, rng=self.rng,
@@ -344,12 +367,16 @@ class Trainer:
     def panel(self, batch) -> np.ndarray:
         """The comparison panel of the batch's first image, its SR from the
         model as it stands, under the training policy: the bare module (not
-        the DDP wrapper) under ``no_grad``, not ``inference_mode``, whose
-        tensors must not reach the weight caches that the next backward
-        reads."""
-        with torch.no_grad():
-            lr1 = torch.from_numpy(batch[0][:1]).to(self.device)
-            sr = m2trans_apply(self.model, lr1, self.cfg, policy_from_config(self.cfg))
+        the DDP wrapper) through the eval runner that validation replays
+        (``train/evaluate.py::eval_runner``: a graph a frame shape on one
+        card, captured once for the run; eager with ``graphs=False``)."""
+        lr1 = torch.from_numpy(batch[0][:1]).to(self.device)
+        policy = policy_from_config(self.cfg)
+        if self.graphs:
+            sr = eval_runner(self.model, self.cfg, policy)(lr1)
+        else:
+            with torch.no_grad():
+                sr = m2trans_apply(self.model, lr1, self.cfg, policy)
         return _comparison_panel(batch[0][0], sr[0].float().cpu().numpy(),
                                  batch[1][0], self.cfg.rgb_range)
 
@@ -453,13 +480,14 @@ class Trainer:
         save_root = (f"{self.experiment_path}/test_results_x{cfg.scale}"
                      if cfg.save_image and self.main else None)
         # every rank validates, so none waits for another's validation in
-        # a collective; large bf16 frames are sharded over the ranks. The
-        # forward is eager: the weights moved since the last validation, so
-        # graphs would capture every frame shape again, which at 4 frames a
-        # shape was no cheaper than the eager forward on the card (PERF.md
-        # §6), and costs more for sets of fewer frames a shape
+        # a collective; large bf16 frames are sharded over the ranks. On one
+        # card the forward and the metrics replay the eval graphs, a frame
+        # shape's captured by the run's first validation: the weights moved
+        # in place since, so the graphs' operands are refreshed, not
+        # captured again (train/evaluate.py)
         results = evaluate_all(self.model, cfg, self.eval_sets, save_root=save_root,
-                               writer=self.writer, writer_step=epoch, graphs=False)
+                               writer=self.writer, writer_step=epoch,
+                               graphs=self.graphs)
         log = ""
         for name, m in results.items():
             s = self.stat_dict[name]

@@ -568,8 +568,11 @@ def test_graph_of_a_new_shape_is_captured_on_its_first_call(dev):
 
 @pytest.mark.cuda
 def test_weights_loaded_in_place_force_a_new_capture(dev):
-    """After load_state_dict into the captured model's parameters the next
-    call captures again and gives a fresh eager forward's output."""
+    """Weights loaded in place (``load_state_dict`` into the captured
+    model's parameters) keep the graph: the next call refreshes the kept
+    operands in place and replays, giving a fresh eager forward's output.
+    Weights loaded by replacing the parameters (``assign=True``) move
+    their storage and force a new capture."""
     cfg, model = _graphed_case(dev, n_blocks=1)
     kern = ComputePolicy(torch.bfloat16, True)
     gf = GraphedForward(model, cfg, kern)
@@ -580,15 +583,21 @@ def test_weights_loaded_in_place_force_a_new_capture(dev):
     with torch.inference_mode():
         got = gf(x).clone()
         want = serving_forward(model, x, cfg, kern, False)
-    assert gf.captures == 2
+    assert (gf.captures, gf.refreshes) == (1, 1)
     assert torch.equal(got, want) and not torch.equal(got, before)
+    model.load_state_dict(init_m2trans(cfg, seed=2, device=dev).state_dict(), assign=True)
+    with torch.inference_mode():
+        got = gf(x).clone()
+        want = serving_forward(model, x, cfg, kern, False)
+    assert gf.captures == 2 and torch.equal(got, want)
 
 
 @pytest.mark.cuda
 def test_recapture_while_a_returned_output_is_held(dev):
     """The caller keeps the static output of a dropped graph: the next
-    capture (the weights moved, or the only graph evicted by
-    ``max_graphs``) takes a new pool, and gives the fresh eager forward."""
+    capture (a parameter replaced, so every graph is dropped) takes a new
+    pool, and gives the fresh eager forward; with ``max_graphs`` 1 the
+    other shape then runs eagerly."""
     cfg, model = _graphed_case(dev, n_blocks=1)
     kern = ComputePolicy(torch.bfloat16, True)
     gf = GraphedForward(model, cfg, kern, max_graphs=1)
@@ -598,13 +607,12 @@ def test_recapture_while_a_returned_output_is_held(dev):
     with torch.inference_mode():
         held = gf(a)
         want_a = held.clone()
-    with torch.no_grad():
-        model.head.bias.add_(0.01)
+    model.head.bias = torch.nn.Parameter(model.head.bias.detach() + 0.01)
     with torch.inference_mode():
         held_b = gf(b)
         assert torch.equal(held_b, serving_forward(model, b, cfg, kern, False))
         assert torch.equal(gf(a), serving_forward(model, a, cfg, kern, False))
-        assert gf.captures == 3 and len(gf._graphs) == 1
+        assert (gf.captures, gf.eager_calls, len(gf._graphs)) == (2, 1, 1)
     assert held.shape == want_a.shape
 
 
@@ -1129,7 +1137,7 @@ def test_eval_metrics_with_graphs_equal_eager(dev, tmp_path, policy):
     two shapes here, kept on the model across calls) gives the eager
     metrics exactly, FSIM/GMSD included; a second evaluation captures
     nothing new."""
-    from m2trans_tpu_torch.train.evaluate import eval_runner
+    from m2trans_tpu_torch.train.evaluate import eval_runner, metrics_runner
 
     rng = np.random.default_rng(8)
     hr_dir, lr_dir = tmp_path / "HR", tmp_path / "LR_bicubic" / "X4"
@@ -1147,7 +1155,16 @@ def test_eval_metrics_with_graphs_equal_eager(dev, tmp_path, policy):
     eager = evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol, graphs=False)
     graphed = evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol)
     runner = eval_runner(model, cfg, pol)
+    metrics = metrics_runner(model, cfg, True)
     assert graphed == eager
     assert (runner.captures, runner.replays) == (2, 3)
+    assert (metrics.captures, metrics.replays) == (2, 3)
     assert evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol) == eager
     assert (runner.captures, runner.replays) == (2, 6)
+    # the weights written in place (an optimizer step): replays, no capture
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.001)
+    assert evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol) == \
+        evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol, graphs=False)
+    assert (runner.captures, runner.replays, metrics.captures) == (2, 9, 2)

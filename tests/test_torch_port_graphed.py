@@ -155,9 +155,11 @@ def test_graphs_are_captured_per_shape_and_dropped_when_a_weight_changes(monkeyp
     """The bookkeeping of GraphedForward, with a stand-in for the capture
     that runs the function twice (the side-stream run, then the captured
     call) as the real one does: a shape is captured on its first call only,
-    the launches counted are the captured call's, and an in-place write to
-    a weight drops every graph, so the next call captures again and gives
-    the new weights' output."""
+    the launches counted are the captured call's; an in-place write to a
+    weight keeps every graph (the replay reads the weights by pointer, as
+    JAX's executable reads its arguments), while a weight replaced by
+    another tensor drops them all, so the next call captures again and
+    gives the new weights' output."""
     captured = []
 
     def fake_capture(fn, pool):
@@ -183,6 +185,14 @@ def test_graphs_are_captured_per_shape_and_dropped_when_a_weight_changes(monkeyp
             "cftm_branch": 0, "ff_conv": 0, "tail_band": 0}  # f32: no kernel
     with torch.no_grad():
         model.head.bias.add_(0.25)
+    with torch.inference_mode():
+        entry = gf._entry(tuple(b.shape))
+        assert entry is first and gf.captures == 2 and len(gf._graphs) == 2
+        entry.inp.copy_(b)
+        entry.graph.replay()
+        want = m2trans_apply_microbatched(model, b, cfg, ComputePolicy()).float()
+    assert torch.equal(entry.out, want)
+    model.head.bias = torch.nn.Parameter(model.head.bias.detach() * 2)
     with torch.inference_mode():
         entry = gf._entry(tuple(b.shape))
         assert entry is not first and gf.captures == 3 and len(gf._graphs) == 1

@@ -378,7 +378,7 @@ def test_graphed_train_step_bookkeeping_with_a_stand_in_capture(monkeypatch):
         return model, opt
 
     def device_step_of(model, opt):
-        def device_step(lr, hr, mask, offsets, tokens):
+        def device_step(lr, hr, mask, offsets, tokens, aug):
             per = (m2trans_apply(model, lr, cfg, ComputePolicy()) - hr).abs().mean(
                 dim=(1, 2, 3))
             l1 = per.mean() if mask is None else (per * mask).sum() / mask.sum()
@@ -414,7 +414,7 @@ def test_graphed_train_step_bookkeeping_with_a_stand_in_capture(monkeypatch):
     eager = device_step_of(eager_model, eager_opt)
     eager_params = [q for q in eager_model.parameters() if q.requires_grad]
     for i in range(3):
-        assert torch.equal(runner(lr, hr), eager(lr, hr, None, None, None)), i
+        assert torch.equal(runner(lr, hr), eager(lr, hr, None, None, None, None)), i
         for a, b in zip(params, eager_params):
             assert torch.equal(a, b), i
         for p, q in zip(params, eager_params):
@@ -422,14 +422,14 @@ def test_graphed_train_step_bookkeeping_with_a_stand_in_capture(monkeypatch):
                 assert torch.equal(v, eager_opt.state[q][k]), (i, k)
     assert (runner.captures, runner.replays) == (1, 3)
     mask = torch.tensor([1.0, 0.0])
-    assert torch.equal(runner(lr, hr, mask), eager(lr, hr, mask, None, None))
+    assert torch.equal(runner(lr, hr, mask), eager(lr, hr, mask, None, None, None))
     assert (runner.captures, len(runner._graphs)) == (2, 2)
     runner(lr, hr)
-    eager(lr, hr, None, None, None)
+    eager(lr, hr, None, None, None, None)
     assert runner.captures == 2
     # a state moved by load_state_dict: every graph dropped, captured again
     opt.load_state_dict(opt.state_dict())
-    assert torch.equal(runner(lr, hr), eager(lr, hr, None, None, None))
+    assert torch.equal(runner(lr, hr), eager(lr, hr, None, None, None, None))
     assert (runner.captures, len(runner._graphs)) == (3, 1)
     for a, b in zip(params, eager_params):
         assert torch.equal(a, b)

@@ -149,14 +149,16 @@ def test_k3_check_raises(bad):
 
 def test_cftm_ff_operands_are_cached_only_without_grad():
     """The (3, 3, C_in, C_out) weight is kept on the block between calls
-    only where no gradient is wanted, and rebuilt when the weight changes."""
+    only where no gradient is wanted, and rewritten in place (its storage
+    kept, which a CUDA graph reading it needs) when the weight changes."""
     blk = init_m2trans(Config(scale=2, n_feats=16, n_blocks=1), seed=0).body[0]
     with torch.no_grad():
         w, b = port_model._ff_wb(blk, BF)
         assert port_model._ff_wb(blk, BF)[0] is w
+        before = w.clone()
         blk.feed_forward[0].weight.mul_(2.0)
         w2, _ = port_model._ff_wb(blk, BF)
-        assert w2 is not w
+        assert w2 is w and not torch.equal(w2, before)
         torch.testing.assert_close(
             w2, ff_weight_hwio(blk.feed_forward[0].weight), rtol=0, atol=0)
     w3, b3 = port_model._ff_wb(blk, BF)

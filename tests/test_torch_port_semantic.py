@@ -409,8 +409,9 @@ def test_clipped_box_matches_jax():
 
 @pytest.mark.parametrize("b", [1, 4, 5])
 def test_cutmix_and_cutout_apply_match_jax(b):
-    """The apply halves against JAX's _clipped_box / _coords_mask composed
-    on the same draws, patch after patch from the state the last one left."""
+    """The masked applies on the packed draws against JAX's _clipped_box /
+    _coords_mask composed on the same draws, patch after patch from the
+    state the last one left, each half on its own."""
     scale, lh, lw = 2, 12, 10
     rng = np.random.default_rng(14 + b)
     lr = rng.uniform(0, 1, (b, lh, lw, 3)).astype(np.float32)
@@ -419,7 +420,8 @@ def test_cutmix_and_cutout_apply_match_jax(b):
     mixed = cut = 0
     for _ in range(8):
         draws = augment.cutmix_draw(draw_rng, b, lh, lw)
-        got_lr, got_hr = augment.cutmix_apply(_t(lr), _t(hr), draws, scale)
+        got_lr, got_hr = augment.cutmix_apply(
+            _t(lr), _t(hr), torch.from_numpy(augment.pack_cutmix(draws, b)), scale)
         want_lr, want_hr = jnp.asarray(lr), jnp.asarray(hr)
         for lo, hi, patches in draws:
             jl, jh = want_lr[lo:hi], want_hr[lo:hi]
@@ -437,7 +439,7 @@ def test_cutmix_and_cutout_apply_match_jax(b):
         np.testing.assert_array_equal(got_hr.numpy(), np.asarray(want_hr))
 
         holes = augment.cutout_draw(draw_rng, b, lh, lw, 3)
-        got = augment.cutout_apply(_t(lr), holes)
+        got = augment.cutout_apply(_t(lr), torch.from_numpy(augment.pack_cutout(holes, b)))
         want = jnp.asarray(lr)
         for lo, hi, boxes in holes:
             keep = jnp.ones((lh, lw), jnp.bool_)
@@ -489,11 +491,24 @@ def test_draws_keep_bounds_and_frequencies():
 
 
 def test_gaussian_noise_is_seeded():
+    """The noise's normal draw is made from its seed (a reused generator
+    reseeded gives a fresh one's values); the add is the packed std times
+    it, and a draw not applied leaves the batch as it is."""
     img = torch.full((2, 8, 8, 3), 0.5)
-    a = augment.gaussian_noise(img, 0.01, 7)
-    assert torch.equal(a, augment.gaussian_noise(img, 0.01, 7))
-    assert not torch.equal(a, augment.gaussian_noise(img, 0.01, 8))
+    gen = torch.Generator()
+
+    def noised(seed, std=0.01, g=None):
+        normal = augment.normal_draw(torch.empty(img.shape), seed, g)
+        return augment.noise_apply(img, torch.from_numpy(augment.pack_noise((std, seed))),
+                                   normal)
+
+    a = noised(7)
+    assert torch.equal(a, noised(7, g=gen)) and torch.equal(a, noised(7, g=gen))
+    assert not torch.equal(a, noised(8))
     assert 0 < float((a - 0.5).abs().max()) < 0.06
+    off = augment.noise_apply(img, torch.from_numpy(augment.pack_noise(None)),
+                              torch.full(img.shape, float("nan")))
+    assert torch.equal(off, img)
 
 
 # ---------------------------------------------------------------------------
