@@ -51,7 +51,14 @@ the recipe, 8 steps, replay vs eager bit for bit, how often each fired,
 host ms of the augmentations and of the graphed device part), the
 ``Trainer`` for 3 epochs validating each (bf16 with the kernels and f32):
 later validations capture nothing and equal eager ones, their s/frame
-split, and the metrics graphs' rows against the eager rows. The CLIs and
+split, and the metrics graphs' rows against the eager rows; then (phases
+25-30) the measurement tools of ``m2trans_tpu_torch/tools/`` at short
+settings, each printing its JSON line: the single-frame latency, the
+scales, batch 64 by micro-batch, the recipe's step at batch 8 (3 replayed
+steps bit for bit against eager), the roofline of the forward and the L1
+step, and the whole recipe through the train CLI for an epoch with a
+release-format ``pytorch_model.bin``, ``vocab.txt`` and UTF-16 captions
+(the port's own tokenizer). The CLIs and
 Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -71,6 +78,7 @@ It exits non-zero, printing no result, where CUDA is absent or the
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import io
 import json
 import os
@@ -101,8 +109,6 @@ K3_ATOL, K3_RTOL = 2e-3, 2e-2
 # eval CLI, bf16 through the kernels vs f32: PSNR dB, and SSIM / FSIM / GMSD
 EVAL_TOL = (0.1, 2e-3)
 BUCKET_TOL = 0.05       # dB, --bucket 32 vs exact, f32
-HBM_BYTES_PER_S = 3.35e12   # NVIDIA H100 SXM, data sheet
-BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, data sheet
 
 
 class SmokeFailure(RuntimeError):
@@ -122,21 +128,9 @@ def need_no_reference_package() -> None:
 
 def time_ms(fn, n: int = 20, warm: int = 3) -> float:
     """Median of ``n`` CUDA-event timings of ``fn`` after ``warm`` calls."""
-    import torch
+    from m2trans_tpu_torch.tools.timing import events
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return events(fn, n, warm)
 
 
 def errs(a, b):
@@ -144,88 +138,16 @@ def errs(a, b):
     return float(d.max()), float(d.mean())
 
 
-def is_device_work(ev) -> bool:
-    """A profiler event that is device work: a kernel, copy or memset, not
-    a host op and not the device-side span of a ``record_function`` range
-    (``Optimizer.step#Adam.step``, ``m2t::device_step``), which would count
-    the kernels inside it twice."""
-    import torch
-
-    return (ev.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(ev, "is_user_annotation", False))
-
-
 def device_ms(fn, n: int = 20, warm: int = 3, copies: bool = False):
-    """Device time of one call of ``fn``: the sum over its kernels from
-    torch.profiler (CUPTI) over ``n`` calls, so host launch overhead and the
-    gaps between kernels are left out; None where the profiler records no
-    device time. With ``copies``: (that, the part of it in memory copies)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` from torch.profiler
+    (``tools/timing.py::device_ms``)."""
+    from m2trans_tpu_torch.tools.timing import device_ms as measure
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = copy = 0.0
-    for ev in prof.key_averages():
-        if is_device_work(ev):
-            us = getattr(ev, "device_time_total", None)
-            us = ev.cuda_time_total if us is None else us
-            total += us
-            copy += us if "memcpy" in ev.key.lower() else 0.0
-    if not total:
-        return (None, None) if copies else None
-    return (total / 1e3 / n, copy / 1e3 / n) if copies else total / 1e3 / n
+    return measure(fn, n, warm, copies)
 
 
 def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f}"
-
-
-def nbytes(*tensors) -> int:
-    """Bytes of the operands, each counted once (a channel slice counts its
-    own elements)."""
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(bytes_moved: float, flops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the bf16 tensor-core peak."""
-    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_b, t_f),
-            "bound_by": "bytes" if t_b >= t_f else "operations"}
-
-
-def add_bounds(*bs) -> dict:
-    """The bound of several launches in a row (their sum); bound_by is that
-    of the largest share."""
-    top = max(bs, key=lambda b: b["bound_ms"])
-    return {"bound_ms": sum(b["bound_ms"] for b in bs), "bound_by": top["bound_by"]}
-
-
-def branch_flops(x, levels: int) -> float:
-    """Operations of one wavelet branch on x (B, H, W, cb): the qkv
-    projection, 2 * 3C^2 per coarse pixel, and q k^T and P v over the 100
-    keys of each query, 2 * 2 * 100 * C per coarse pixel."""
-    bsz, h, w, cb = x.shape
-    c, n = cb * 4 ** levels, bsz * h * w // 4 ** levels
-    return n * (6.0 * c * c + 400.0 * c)
-
-
-def tail_flops(y, scale: int) -> float:
-    """Operations of the tail on y (B, H, W, nf): the 1x1 stages and the 3x3
-    conv to 3 channels at the output resolution."""
-    n, nf = y.shape[0] * y.shape[1] * y.shape[2], y.shape[3]
-    if scale == 4:
-        stages = 2.0 * n * nf * 4 * nf + 2.0 * 4 * n * nf * 4 * nf
-    else:
-        stages = 2.0 * n * nf * nf * scale * scale
-    return stages + 2.0 * scale * scale * n * 9 * nf * 3
 
 
 def ff_case(shape, seed=0):
@@ -381,9 +303,10 @@ def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96)):
 
 
 def word_tokenizer(vocab_size: int):
-    """A stand-in for MedCLIP's tokenizer (the GPU machine has no
-    ``transformers``): [CLS] = 2, an id a word from its CRC, [SEP] = 3, zero
-    padding to ``max_length``; numpy, as ``SemanticLossFn.tokenize`` asks."""
+    """A tokenizer for the phases whose MedCLIP has seeded weights and no
+    vocabulary file (phase 30 runs the port's WordPiece tokenizer on one):
+    [CLS] = 2, an id a word from its CRC, [SEP] = 3, zero padding to
+    ``max_length``; numpy, as ``SemanticLossFn.tokenize`` asks."""
     import zlib
 
     import numpy as np
@@ -410,6 +333,8 @@ def profile_call(fn, n: int = 2, warm: int = 1) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from m2trans_tpu_torch.tools.timing import is_device_work
+
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -432,55 +357,16 @@ def profile_call(fn, n: int = 2, warm: int = 1) -> dict:
 
 
 def profile_split(fn) -> str:
-    """Device time of one call of ``fn`` by kind of kernel, from
-    torch.profiler (CUPTI); "not measured" where it records no device
-    time. "K1 w16" and "K1 w64" are the window bodies of
-    csrc/cftm_window.cuh (L = 0 and L = 1 at base width 16), "K1 c256" the
-    cluster body (L = 2), "K1 general" the body of every other width. K1b's
-    kernels: "K1b win16" / "K1b win64" its window body at L = 0 / L = 1, "K1b
-    c256" its cluster body, "K1b proj" its second kernel (all levels), "K1b
-    general" the body of other widths; "reduce" is the tree reduction of
-    K1b's and K2b's partials. In a train step "K2" is two launches of K2's
-    kernel: the forward, and K2b's first pass (the clip mask), which runs the
-    same kernel; "K2b" is its second pass."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` by kind of kernel
+    (``tools/timing.py::kernel_kind``), from torch.profiler (CUPTI); "not
+    measured" where it records no device time."""
+    from m2trans_tpu_torch.tools.timing import device_split
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kinds = {"K1 w16": 0.0, "K1 w64": 0.0, "K1 c256": 0.0, "K1 general": 0.0,
-             "K1b win16": 0.0, "K1b win64": 0.0, "K1b c256": 0.0, "K1b proj": 0.0,
-             "K1b general": 0.0, "K2": 0.0, "K2b": 0.0, "K3": 0.0, "reduce": 0.0,
-             "other": 0.0}
-    for ev in prof.key_averages():
-        if not is_device_work(ev):
-            continue  # host ops; their device time is their kernels'
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        k = ev.key
-        kind = ("K1b win16" if "cftm_bwd_attn_win_kernel<16>" in k
-                else "K1b win64" if "cftm_bwd_attn_win_kernel" in k
-                else "K1b c256" if "cftm_bwd_attn_c256_kernel" in k
-                else "K1b general" if "_general_kernel" in k
-                else "K1b proj" if "cftm_bwd_proj_kernel" in k
-                else "K1 c256" if "cftm_branch_c256_kernel" in k
-                else "K1 w16" if "cftm_branch_w16_kernel" in k
-                else "K1 w64" if "cftm_branch_w64_kernel" in k
-                else "K1 general" if "cftm_branch_kernel" in k
-                else "K2b" if "tail_band_bwd_kernel" in k
-                else "K2" if "tail_band_kernel" in k
-                else "K3" if "ff_conv_kernel" in k
-                else "reduce" if "reduce_tree_kernel" in k else "other")
-        kinds[kind] += us / 1e3
-    total = sum(kinds.values())
-    if total == 0:
+    kinds = device_split(fn)
+    if kinds is None:
         return "not measured (the profiler recorded no device time)"
     return ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items()) + \
-        f"; total {total:.3f} ms"
+        f"; total {sum(kinds.values()):.3f} ms"
 
 
 def semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work,
@@ -937,7 +823,7 @@ def parallel_phases(dev, model, cfg, lr_b, hr_b, grads_k, grads_p, grads_f, work
         cli_s = time.perf_counter() - t1
         for k, p in procs.items():
             need(p.returncode == 0, f"{k} CLI under torch.distributed.run exited "
-                 f"{p.returncode}:\n{res[k][1][-3000:]}")
+                 f"{p.returncode}:\n{res[k][1][-8000:]}\nits output:\n{res[k][0][-2000:]}")
 
         report = json.loads([ln for ln in res["infer"][0].splitlines()
                              if ln.startswith("{")][-1])
@@ -1932,6 +1818,96 @@ def graphed_aug_eval_phase(dev, lr_b, hr_b, work) -> dict:
     return launches_l1
 
 
+def tools_phase() -> dict:
+    """Phases 25-30: the measurement tools of ``m2trans_tpu_torch/tools/``
+    through their entry points, each at a short setting, each printing its
+    JSON line and its seconds: (25) the single-frame latency at 96x96 and
+    512x512, 64 frames a size and output; (26) x4 / x3 / x2 at 384x384
+    output, one chain pair each; (27) batch 64 at micro-batch 8 and 64;
+    (28) the recipe's step at batch 8, 3 replayed steps bit for bit against
+    3 eager steps; (29) the roofline of the x4 forward and the L1 step;
+    (30) the train CLI for one epoch of the whole recipe on 4 training
+    images, through the port's tokenizer and a release-format
+    ``pytorch_model.bin`` written by ``medclip_release_state_dict``. The
+    kernel wrappers' counts are set to 0 just before each tool and read
+    just after, and each kernel of the tool's path must have launched (the
+    train CLI's launches are its own process's). Returns those counts by
+    tool."""
+    import math
+
+    from m2trans_tpu_torch.tools import (
+        bench_batch64,
+        bench_clip_train,
+        bench_latency,
+        bench_scales,
+        roofline,
+        train_full_recipe,
+    )
+    from m2trans_tpu_torch.train.graphed import COUNTED
+
+    def positive(v) -> bool:
+        return isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+
+    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
+    counts = {}
+
+    def drive(phase, name, tool, args, kernels):
+        for f in COUNTED.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        line = tool.main(args)
+        counts[name] = {k: f.launches for k, f in COUNTED.items()}
+        need(all(counts[name][k] > 0 for k in kernels),
+             f"phase {phase} {name}: launches {counts[name]}, want each of {kernels}")
+        need(line.get("device") and line.get("power_limit_w"),
+             f"phase {phase} {name}: no card in {line}")
+        print(f"phase {phase} {name}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts[name]}")
+        return line
+
+    fwd = ("cftm_branch", "ff_conv", "tail_band")
+    lat = drive(25, "bench_latency", bench_latency,
+                ["--sizes", "96", "512", "--frames", "64"], fwd)
+    for size, entry in lat["sizes"].items():
+        for out in ("f32", "u8"):
+            e = entry[out]
+            need(e["samples"] == 64 and all(positive(e[f"p{q}_ms"]) for q in (50, 90, 99))
+                 and e["captures"] == 1 and positive(e["device_ms"]),
+                 f"phase 25 {size} {out}: {e}")
+        need(positive(entry["device_chain_ms"]), f"phase 25 {size}: {entry}")
+    sc = drive(26, "bench_scales", bench_scales, ["--pairs", "1"], fwd)
+    for s, entry in sc["scales"].items():
+        need(positive(entry["mps"]) and entry["launches"] == fwd_want
+             and positive(entry["device_ms"]), f"phase 26 {s}: {entry}")
+    b64 = drive(27, "bench_batch64", bench_batch64, ["--micro", "8", "64", "--pairs", "1"],
+                fwd)
+    for mb, entry in b64["micro_batch"].items():
+        chunks = 64 // int(mb)
+        need(positive(entry["mps"]) and positive(entry["peak_gib"])
+             and entry["launches"] == {k: v * chunks for k, v in fwd_want.items()},
+             f"phase 27 micro_batch {mb}: {entry}")
+    step = drive(28, "bench_clip_train", bench_clip_train,
+                 ["--batches", "8", "--kinds", "recipe-f32", "--pairs", "1"],
+                 fwd + ("cftm_branch_bwd", "tail_band_bwd"))
+    need(step["replay_vs_eager"] == {"recipe-f32 b8": "bit for bit"},
+         f"phase 28: {step['replay_vs_eager']}")
+    entry = step["steps"]["recipe-f32 b8"]
+    need(positive(entry["ms_queued"]) and positive(entry["device_ms"])
+         and all(n == {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+                 for n in entry["launches_per_capture"]), f"phase 28: {entry}")
+    roof = drive(29, "roofline", roofline, ["--programs", "fwd-x4", "step-L1"],
+                 fwd + ("cftm_branch_bwd", "tail_band_bwd"))
+    for name, entry in roof["programs"].items():
+        need(all(positive(entry[k]) and entry[k] <= 1.0 for k in ("mfu", "hbm_floor_share")),
+             f"phase 29 {name}: {entry}")
+    full = drive(30, "train_full_recipe", train_full_recipe,
+                 ["--epochs", "1", "--n-train", "4"], ())
+    need(all(math.isfinite(v) for v in full["train_loss_last_logged_per_epoch"].values())
+         and len(full["val_trajectory"]) == 1
+         and math.isfinite(full["val_trajectory"][0]["psnr"]), f"phase 30: {full}")
+    return counts
+
+
 def run() -> dict:
     import torch
 
@@ -1962,6 +1938,13 @@ def run() -> dict:
         tail_band_plain_vjp,
     )
     from m2trans_tpu_torch.train.convert import reference_state_dict
+    from m2trans_tpu_torch.utils.roofline import (
+        add_bounds,
+        bound,
+        branch_flops,
+        nbytes,
+        tail_flops,
+    )
 
     need_no_reference_package()
 
@@ -2634,6 +2617,11 @@ def run() -> dict:
     # set to 0 just before each graphed run and read just after)
     graphed_aug_eval_phase(dev, lr_b, hr_b, work)
 
+    # 25-30. the measurement tools of m2trans_tpu_torch/tools/ at short
+    # settings (the launch counts set to 0 just before each and read just
+    # after)
+    tools_phase()
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -2722,6 +2710,9 @@ def main() -> int:
     # one card: the first visible device, for this process and the CLI's
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    # a process that faults (this one, a CLI, a rank) prints its Python stack
+    faulthandler.enable()
+    os.environ["PYTHONFAULTHANDLER"] = "1"
     try:
         import torch
     except ImportError:

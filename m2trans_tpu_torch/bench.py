@@ -52,13 +52,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import time
 
+from m2trans_tpu_torch.tools.timing import card, graph_seconds_per_step, median_slope
+
 METRIC = "x4_sr_output_megapixels_per_sec_per_chip"
-GRAPH_N = (4, 36)    # replays per timed run: the two chain lengths
-GRAPH_PAIRS = 5
 WALL_N = (2, 18)     # eager steps per timed run
 WALL_PAIRS = 3
 
@@ -71,17 +69,6 @@ def chain_step(forward):
         return x * 0.999 + forward(x).mean() * 1e-3
 
     return step
-
-
-def _median_slope(run, ns, pairs):
-    """Median of ``(run(n2) - run(n1)) / (n2 - n1)`` over ``pairs`` pairs."""
-    n1, n2 = ns
-    slopes = []
-    for _ in range(pairs):
-        t1 = run(n1)
-        t2 = run(n2)
-        slopes.append((t2 - t1) / (n2 - n1))
-    return statistics.median(slopes)
 
 
 def eager_seconds_per_step(step, x0) -> float:
@@ -100,42 +87,7 @@ def eager_seconds_per_step(step, x0) -> float:
         return time.perf_counter() - t0
 
     run(1)  # warm: builds the kernels and the cached weight operands
-    return _median_slope(run, WALL_N, WALL_PAIRS)
-
-
-def graph_seconds_per_step(step, x0) -> float:
-    """CUDA-event seconds a step of the chain, its forward replayed from a
-    graph."""
-    import torch
-
-    def run(n):
-        x = x0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            x = step(x)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    run(1)  # captures
-    return _median_slope(run, GRAPH_N, GRAPH_PAIRS)
-
-
-def card(device) -> dict:
-    """The card's name, and its power limit in W as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` gives it."""
-    import torch
-
-    if device.type != "cuda":
-        return {"device": "cpu", "power_limit_w": None}
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    limit = res.stdout.strip().splitlines()[0].rsplit(",", 1)[1]
-    return {"device": torch.cuda.get_device_name(device),
-            "power_limit_w": float(limit.strip().split()[0])}
+    return median_slope(run, WALL_N, WALL_PAIRS)
 
 
 def main(argv=None) -> None:

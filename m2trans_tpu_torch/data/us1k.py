@@ -96,10 +96,18 @@ class US1KDataset:
         self.n_images = len(self.hr_npy)
 
     def _convert(self, png: str, npy: str) -> None:
+        """Write ``png``'s array to ``npy`` whole or not at all: the ranks of
+        a data-parallel run convert the same tree at once, and a rank must
+        never map a file another is still writing (the C++ loader would
+        read past its end). Each writes its own temporary file and renames
+        it into place; a rank that already mapped the file keeps its copy."""
         img = read_rgb(png)
         if self.colors == 1:
             img = rgb2ycbcr_uint8(img)[:, :, 0:1]
-        np.save(npy, img)
+        tmp = f"{npy}.tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.save(f, img)
+        os.replace(tmp, npy)
 
     def __len__(self) -> int:
         return self.n_images * self.repeat if self.train else self.n_images

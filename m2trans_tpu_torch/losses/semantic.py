@@ -262,19 +262,19 @@ class SemanticLossFn:
 
 def make_semantic_loss(cfg, device: Optional[torch.device] = None) -> SemanticLossFn:
     """The loss of a Config: MedCLIP weights and tokenizer from
-    ``cfg.medclip_path`` (a directory with ``pytorch_model.bin`` and the
-    tokenizer files, the released MedCLIP zip's contents). Needs
-    ``transformers`` for the tokenizer."""
+    ``cfg.medclip_path`` (a directory with ``pytorch_model.bin``,
+    ``vocab.txt`` and ``tokenizer_config.json``, the released MedCLIP zip's
+    contents). The tokenizer is the port's own
+    (``models/medclip/tokenizer.py``), the ids ``AutoTokenizer`` gives."""
     import os
 
-    from transformers import AutoTokenizer
-
     from m2trans_tpu_torch.models.medclip.model import load_medclip_torch
+    from m2trans_tpu_torch.models.medclip.tokenizer import WordPieceTokenizer
 
     mcfg = MedCLIPConfig.tiny() if cfg.medclip_tiny else MedCLIPConfig()
+    tokenizer = WordPieceTokenizer.from_dir(cfg.medclip_path)
     model = load_medclip_torch(os.path.join(cfg.medclip_path, "pytorch_model.bin"),
                                mcfg, device)
-    tokenizer = AutoTokenizer.from_pretrained(cfg.medclip_path)
     dtype = torch.bfloat16 if cfg.medclip_dtype == "bfloat16" else None
     return SemanticLossFn(model, mcfg, tokenizer, n_patches=3,
                           clip_size=56 if cfg.medclip_tiny else 224,

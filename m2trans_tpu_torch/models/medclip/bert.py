@@ -7,7 +7,8 @@ LayerNorms, attention logits and the softmax run in f32, the rest in the
 parameters' dtype, as in the JAX encoder.
 
 Param layout: the JAX package's tree (:class:`ParamTree`); Linear weights
-(in, out). ``bert_from_torch`` reads the HF / released key layout.
+(in, out). ``bert_from_torch`` reads the HF / released key layout,
+``bert_to_torch`` writes it.
 """
 
 from __future__ import annotations
@@ -157,3 +158,40 @@ def bert_from_torch(sd: Dict[str, Any], cfg: BertConfig,
                            "b": t(f"{base}.output.LayerNorm.bias")}},
         })
     return tree
+
+
+def bert_to_torch(enc: BertEncoder, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`bert_from_torch`: an HF ``BertModel`` state
+    dict without the pooler (``add_pooling_layer=False``), keys under
+    ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        sd[prefix + name] = t.detach().cpu().contiguous()
+
+    def lin(name, w, b):
+        put(f"{name}.weight", w.t())
+        put(f"{name}.bias", b)
+
+    def norm(name, p):
+        put(f"{name}.weight", p["g"])
+        put(f"{name}.bias", p["b"])
+
+    e = enc["embeddings"]
+    put("embeddings.word_embeddings.weight", e["word"])
+    put("embeddings.position_embeddings.weight", e["position"])
+    put("embeddings.token_type_embeddings.weight", e["token_type"])
+    norm("embeddings.LayerNorm", e["ln"])
+    for i, layer in enumerate(enc["layers"]):
+        base = f"encoder.layer.{i}"
+        a, f = layer["attn"], layer["ffn"]
+        for ours, theirs in (("q", "attention.self.query"),
+                             ("k", "attention.self.key"),
+                             ("v", "attention.self.value"),
+                             ("o", "attention.output.dense")):
+            lin(f"{base}.{theirs}", a[f"{ours}_w"], a[f"{ours}_b"])
+        norm(f"{base}.attention.output.LayerNorm", a["ln"])
+        lin(f"{base}.intermediate.dense", f["fc1_w"], f["fc1_b"])
+        lin(f"{base}.output.dense", f["fc2_w"], f["fc2_b"])
+        norm(f"{base}.output.LayerNorm", f["ln"])
+    return sd

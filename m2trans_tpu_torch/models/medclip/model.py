@@ -17,7 +17,8 @@ differentiates through the encoders to its input, never into them, and no
 optimizer sees them. ``load_medclip_torch`` maps the released
 ``pytorch_model.bin`` (keys ``vision_model.model.*``,
 ``vision_model.projection_head.*``, ``text_model.model.*``,
-``text_model.projection_head.*``, ``logit_scale``).
+``text_model.projection_head.*``, ``logit_scale``);
+``medclip_release_state_dict`` writes a model in that layout.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from m2trans_tpu_torch.models.medclip.bert import (
     BertConfig,
     BertEncoder,
     bert_from_torch,
+    bert_to_torch,
     init_bert,
 )
 from m2trans_tpu_torch.models.medclip.swin import (
@@ -41,6 +43,7 @@ from m2trans_tpu_torch.models.medclip.swin import (
     SwinEncoder,
     init_swin,
     swin_from_torch,
+    swin_to_torch,
 )
 
 
@@ -167,3 +170,26 @@ def load_medclip_torch(path_or_sd, cfg: Optional[MedCLIPConfig] = None,
         "logit_scale": sd.get("logit_scale", torch.tensor(math.log(1 / 0.07))),
     }
     return MedCLIP(cfg, tree).to(device or "cpu")
+
+
+def medclip_release_state_dict(model: MedCLIP) -> Dict[str, torch.Tensor]:
+    """``model`` as the released ``pytorch_model.bin`` lays it out, the
+    inverse of :func:`load_medclip_torch`: ``vision_model.model.*`` (HF
+    ``SwinModel``), ``vision_model.projection_head.weight``,
+    ``text_model.model.*`` (HF ``BertModel`` without its pooler),
+    ``text_model.projection_head.{weight,bias}`` and ``logit_scale``, CPU
+    tensors in the model's dtype. The vision projection has no bias in the
+    release: a nonzero one raises."""
+    vb = model.vision_proj["b"]
+    if bool(vb.any()):
+        raise ValueError("the release's vision projection has no bias; this "
+                         "model's is nonzero")
+    sd = swin_to_torch(model.vision, "vision_model.model.")
+    sd.update(bert_to_torch(model.text, "text_model.model."))
+    sd["vision_model.projection_head.weight"] = (
+        model.vision_proj["w"].detach().t().contiguous().cpu())
+    sd["text_model.projection_head.weight"] = (
+        model.text_proj["w"].detach().t().contiguous().cpu())
+    sd["text_model.projection_head.bias"] = model.text_proj["b"].detach().cpu().clone()
+    sd["logit_scale"] = model.logit_scale.detach().cpu().clone()
+    return sd

@@ -12,7 +12,7 @@ dtype (bf16 under ``medclip_dtype: bfloat16``), as in the JAX encoder.
 
 Param layout: the JAX package's tree (:class:`ParamTree`); Linear weights
 (in, out), the patch embedding HWIO. ``swin_from_torch`` reads the HF /
-released key layout.
+released key layout, ``swin_to_torch`` writes it.
 """
 
 from __future__ import annotations
@@ -296,3 +296,49 @@ def swin_from_torch(sd: Dict[str, Any], cfg: SwinConfig,
     tree["stages"] = stages
     tree["final_norm"] = {"g": t("layernorm.weight"), "b": t("layernorm.bias")}
     return tree
+
+
+def swin_to_torch(enc: SwinEncoder, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`swin_from_torch`: an HF ``SwinModel`` state
+    dict (its ``relative_position_index`` buffers included), keys under
+    ``prefix``."""
+    cfg = enc.cfg
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        sd[prefix + name] = t.detach().cpu().contiguous()
+
+    def lin(name, w, b):
+        put(f"{name}.weight", w.t())
+        put(f"{name}.bias", b)
+
+    def norm(name, p):
+        put(f"{name}.weight", p["g"])
+        put(f"{name}.bias", p["b"])
+
+    put("embeddings.patch_embeddings.projection.weight",
+        enc["patch_embed"]["w"].permute(3, 2, 0, 1))
+    put("embeddings.patch_embeddings.projection.bias", enc["patch_embed"]["b"])
+    norm("embeddings.norm", enc["embed_norm"])
+    rpi = torch.from_numpy(_relative_position_index(cfg.window_size))
+    for si, stage in enumerate(enc["stages"]):
+        for di, blk in enumerate(stage["blocks"]):
+            base = f"encoder.layers.{si}.blocks.{di}"
+            a, m = blk["attn"], blk["mlp"]
+            norm(f"{base}.layernorm_before", blk["ln1"])
+            put(f"{base}.attention.self.relative_position_bias_table", a["rpb_table"])
+            put(f"{base}.attention.self.relative_position_index", rpi)
+            for ours, theirs in (("q", "attention.self.query"),
+                                 ("k", "attention.self.key"),
+                                 ("v", "attention.self.value"),
+                                 ("o", "attention.output.dense")):
+                lin(f"{base}.{theirs}", a[f"{ours}_w"], a[f"{ours}_b"])
+            norm(f"{base}.layernorm_after", blk["ln2"])
+            lin(f"{base}.intermediate.dense", m["fc1_w"], m["fc1_b"])
+            lin(f"{base}.output.dense", m["fc2_w"], m["fc2_b"])
+        if "downsample" in stage:
+            ds = f"encoder.layers.{si}.downsample"
+            put(f"{ds}.reduction.weight", stage["downsample"]["reduction_w"].t())
+            norm(f"{ds}.norm", stage["downsample"]["norm"])
+    norm("layernorm", enc["final_norm"])
+    return sd

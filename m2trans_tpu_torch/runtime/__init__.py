@@ -13,7 +13,8 @@ and the flags, so an edited source is rebuilt; nothing is written beside
 the source. The library has a plain C interface and builds in seconds. A
 failed build raises with g++'s output: there is no fallback for it. A cache
 the loader cannot index (an LR image smaller than the patch, HR and LR
-channels that differ, anything but uint8 C-order arrays) raises
+channels that differ, anything but uint8 C-order arrays, a file shorter
+than its header says) raises
 :class:`LoaderRejected`, on which ``data/pipeline.py::create_datasets``
 uses the Python loader, as the JAX package does.
 """
@@ -118,9 +119,9 @@ class NativeTrainLoader:
                                          batch_size, num_workers, seed)
         if not self._handle:
             raise LoaderRejected(
-                "the C++ loader cannot index this npy cache (it takes uint8 "
-                "C-order arrays whose LR images hold the patch and whose HR and "
-                "LR channels agree)")
+                "the C++ loader cannot index this npy cache (it takes whole "
+                "uint8 C-order arrays whose LR images hold the patch and whose "
+                "HR and LR channels agree)")
         self._lib = dll
         self.patch = patch_size
         self.scale = scale

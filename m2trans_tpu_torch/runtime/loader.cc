@@ -59,6 +59,7 @@ NpyArray map_npy(const std::string& path) {
   size_t hlen, hoff;
   if (major == 1) { hlen = p[8] | (p[9] << 8); hoff = 10; }
   else { hlen = p[8] | (p[9] << 8) | (p[10] << 16) | (p[11] << 24); hoff = 12; }
+  if (hoff + hlen > (size_t)st.st_size) { munmap(base, st.st_size); return a; }
   std::string header(reinterpret_cast<const char*>(p + hoff), hlen);
   if (header.find("'descr': '|u1'") == std::string::npos ||
       header.find("'fortran_order': False") == std::string::npos) {
@@ -79,6 +80,14 @@ NpyArray map_npy(const std::string& path) {
     if (*s == ')') break;
   }
   if (nd < 2) { munmap(base, st.st_size); return a; }
+  // the payload must lie inside the file: a cache caught mid-write (or cut
+  // short) would otherwise be read past the end of the mapping
+  const uint64_t payload = (uint64_t)dims[0] * (uint64_t)dims[1] *
+                           (uint64_t)(nd == 3 ? dims[2] : 1);
+  if (dims[0] <= 0 || dims[1] <= 0 || (nd == 3 && dims[2] <= 0) ||
+      hoff + hlen + payload > (uint64_t)st.st_size) {
+    munmap(base, st.st_size); return a;
+  }
   a.map_base = base;
   a.map_len = st.st_size;
   a.data = p + hoff + hlen;

@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -41,35 +41,15 @@ import time
 LABELS = ("m2t::augment", "m2t::wait", "m2t::device_step")
 
 
-def _events(fn, n=20, warm=3):
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _host(fn, n=20):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    got = {ev.key: ev.cpu_time_total / 1e3 / n for ev in prof.key_averages()}
-    return {k: got.get(k) for k in LABELS}
+def _timing():
+    """``tools/timing.py`` of this checkout, loaded by its path: the
+    checkout under ``--root`` may predate it."""
+    spec = importlib.util.spec_from_file_location(
+        "m2t_step_host_timing", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             "timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _rate(fn, n=60):
@@ -152,6 +132,7 @@ def main() -> int:
                          ).stdout.strip())
     print(f"m2trans_tpu_torch from {os.path.dirname(m2trans_tpu_torch.__file__)}")
     dev = torch.device("cuda")
+    timing = _timing()
     ship = load_config(os.path.join(root_dir, "configs", "M2Trans_x4.yml"))
     aug = dict(cutmix=True, data_add_noise=True, dtype="bfloat16", use_pallas=True)
     mcfg = MedCLIPConfig()
@@ -175,8 +156,8 @@ def main() -> int:
             return step(lr_b, hr_b, captions=caps if f is not None else None, rng=rng,
                         do_cutout=True)
 
-        out[name] = {"event_ms": _events(call), "steps_per_s": _rate(call),
-                     "host_ms": _host(call)}
+        out[name] = {"event_ms": timing.events(call), "steps_per_s": _rate(call),
+                     "host_ms": timing.host(call, LABELS)}
         del model, step
     with tempfile.TemporaryDirectory() as tmp:
         out["Trainer steps/s"] = _trainer_rate(root_dir, dev, tmp)

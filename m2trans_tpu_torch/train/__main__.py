@@ -9,9 +9,10 @@ The config is the JAX package's flat YAML; ``dtype: bfloat16`` with
 K1b/K2b backward). ``--device`` defaults to ``cuda`` and fails when no
 CUDA device is present; the CPU runs only when asked for, with the
 kernels' plain versions. With ``lambda_clip > 0`` and ``medclip_path`` (a
-directory with the released MedCLIP ``pytorch_model.bin`` and its
-tokenizer files) the step adds the MedCLIP semantic loss on the captions of
-``captions_path``; building the tokenizer needs ``transformers``.
+directory with the released MedCLIP ``pytorch_model.bin``, ``vocab.txt``
+and ``tokenizer_config.json``) the step adds the MedCLIP semantic loss on
+the captions of ``captions_path`` (utf-16, a caption a line), tokenized by
+the port's own WordPiece tokenizer.
 
 Data parallelism: ``mesh_data: N`` in the config and ``python -m
 torch.distributed.run --nproc_per_node N -m m2trans_tpu_torch.train ...``

@@ -21,12 +21,13 @@ from m2trans_tpu_torch.models.m2trans import ComputePolicy, M2Trans, m2trans_app
 
 
 def model_flops(model: M2Trans, cfg: Config, h: Optional[int] = None,
-                w: Optional[int] = None) -> float:
-    """Operations of one plain f32 forward at the given LR size (default
-    384/scale square), on the model's device."""
+                w: Optional[int] = None, batch: int = 1) -> float:
+    """Operations of one plain f32 forward of ``batch`` frames at the given
+    LR size (default 384/scale square), on the model's device, whatever
+    ``cfg``'s dtype and ``use_pallas`` say."""
     h = h or 384 // cfg.scale
     w = w or 384 // cfg.scale
-    x = torch.zeros(1, h, w, cfg.colors, device=next(model.parameters()).device)
+    x = torch.zeros(batch, h, w, cfg.colors, device=next(model.parameters()).device)
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
         m2trans_apply(model, x, cfg, ComputePolicy())

@@ -1168,3 +1168,66 @@ def test_eval_metrics_with_graphs_equal_eager(dev, tmp_path, policy):
     assert evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol) == \
         evaluate_dataset(model, cfg, ds, full_metrics=True, policy=pol, graphs=False)
     assert (runner.captures, runner.replays, metrics.captures) == (2, 9, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["L1", "recipe-f32"])
+def test_graphed_step_batch8_equals_eager(dev, kind):
+    """The train step at batch 8 (new shapes for the packed cutmix draws,
+    the one-hot crops and MedCLIP's 24 patches of 224x224), replayed from
+    its CUDA graph, equals the eager step bit for bit over 3 steps: losses,
+    parameters and Adam's state (the flagship width at 2 blocks, MedCLIP at
+    its published width, seeded)."""
+    from m2trans_tpu_torch.losses.semantic import SemanticLossFn
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.tools.bench_clip_train import StepCase, replay_vs_eager
+
+    fn = None
+    if kind != "L1":
+        mcfg = MedCLIPConfig()
+        fn = SemanticLossFn(init_medclip(mcfg, seed=4, device=dev), mcfg, None)
+    case = StepCase(kind, 8, dev, fn, n_blocks=2)
+    assert replay_vs_eager(case, 3) == "bit for bit"
+
+
+@pytest.mark.cuda
+def test_release_bin_through_make_semantic_loss_on_card(dev, tmp_path):
+    """A release-format pytorch_model.bin (``medclip_release_state_dict``),
+    vocab.txt and tokenizer_config.json through ``make_semantic_loss`` on the
+    card: the weights are the seeded model's, the port's tokenizer gives the
+    ids, and the loss and its gradient match the same loss on the CPU."""
+    import json
+
+    from m2trans_tpu_torch.losses.semantic import make_semantic_loss
+    from m2trans_tpu_torch.models.medclip.model import (
+        MedCLIPConfig,
+        init_medclip,
+        medclip_release_state_dict,
+    )
+
+    ref = init_medclip(MedCLIPConfig.tiny(), seed=6)
+    torch.save(medclip_release_state_dict(ref), tmp_path / "pytorch_model.bin")
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "carotid", "artery", "liver",
+         "of", "the", "view", "##s"]) + "\n")
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps({"do_lower_case": True}))
+    cfg = Config(medclip_path=str(tmp_path), medclip_tiny=True, lambda_clip=0.01)
+    fn = make_semantic_loss(cfg, dev)
+    for a, b in zip(fn.model.state_dict().values(), ref.state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+    caps = fn.tokenize(["View of the carotid artery", "the livers"])
+    assert caps["input_ids"][0, :8].tolist() == [2, 10, 8, 9, 5, 6, 3, 0]
+    assert caps["input_ids"][1, :6].tolist() == [2, 9, 7, 11, 3, 0]
+    rng = np.random.default_rng(7)
+    sr = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    hr = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    offsets = fn.draw_offsets(np.random.default_rng(3), 2, 64, 64)
+    cpu_fn = make_semantic_loss(cfg, torch.device("cpu"))
+    want_sr = sr.clone().requires_grad_(True)
+    got_sr = sr.to(dev).detach().requires_grad_(True)
+    got = fn(got_sr, hr.to(dev), caps, offsets=offsets)
+    want = cpu_fn(want_sr, hr, caps, offsets=offsets)
+    got.backward()
+    want.backward()
+    assert float(got.detach()) == pytest.approx(float(want.detach()), rel=1e-4)
+    assert torch.allclose(got_sr.grad.cpu(), want_sr.grad, rtol=1e-3, atol=1e-6)

@@ -142,18 +142,32 @@ def test_tail_phase(scale):
 
 def test_port_never_loads_jax():
     """Importing every module of the port, the test bridge
-    ``train.jax_params`` included, loads neither jax nor the JAX package, nor
-    ``transformers`` (only ``make_semantic_loss`` imports it, for the
-    tokenizer, when it is called)."""
+    ``train.jax_params`` and the measurement tools included, loads neither
+    jax nor the JAX package, nor ``transformers``; nor does
+    ``make_semantic_loss`` on a tiny MedCLIP directory (a release-format
+    ``pytorch_model.bin``, ``vocab.txt``), whose tokenizer is the port's."""
     code = (
-        "import pkgutil, importlib, sys\n"
+        "import pkgutil, importlib, sys, tempfile, os, torch\n"
         "import m2trans_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(m2trans_tpu_torch.__path__, 'm2trans_tpu_torch.')]\n"
         "assert 'm2trans_tpu_torch.train.jax_params' in names\n"
         "assert {'m2trans_tpu_torch.bench', 'm2trans_tpu_torch.models.graphed',\n"
-        "        'm2trans_tpu_torch.train.graphed'} <= set(names)\n"
+        "        'm2trans_tpu_torch.train.graphed', 'm2trans_tpu_torch.models.medclip.tokenizer',\n"
+        "        'm2trans_tpu_torch.utils.roofline', 'm2trans_tpu_torch.tools.timing',\n"
+        "        'm2trans_tpu_torch.tools.bench_latency', 'm2trans_tpu_torch.tools.bench_scales',\n"
+        "        'm2trans_tpu_torch.tools.bench_batch64', 'm2trans_tpu_torch.tools.bench_clip_train',\n"
+        "        'm2trans_tpu_torch.tools.roofline', 'm2trans_tpu_torch.tools.train_full_recipe'\n"
+        "        } <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "from m2trans_tpu_torch.config import Config\n"
+        "from m2trans_tpu_torch.losses.semantic import make_semantic_loss\n"
+        "from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip, medclip_release_state_dict\n"
+        "d = tempfile.mkdtemp()\n"
+        "torch.save(medclip_release_state_dict(init_medclip(MedCLIPConfig.tiny(), 1)), os.path.join(d, 'pytorch_model.bin'))\n"
+        "open(os.path.join(d, 'vocab.txt'), 'w').write('[PAD]\\n[UNK]\\n[CLS]\\n[SEP]\\nliver\\n')\n"
+        "fn = make_semantic_loss(Config(medclip_path=d, medclip_tiny=True), torch.device('cpu'))\n"
+        "assert fn.tokenize(['Liver'])['input_ids'][0, :4].tolist() == [2, 4, 3, 0]\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'm2trans_tpu', 'transformers'))\n"
         "assert not bad, bad\n"

@@ -222,3 +222,61 @@ def test_create_datasets_rejected_cache_uses_python_loader(tmp_path, capsys):
     for text in (jax_out, out):
         assert "## native loader unavailable (" in text
         assert text.rstrip().endswith("using the Python loader ##")
+
+
+@pytest.mark.parametrize("keep", ["half_header", "header_only", "part_of_payload",
+                                  "all_but_one_byte"])
+def test_rejects_a_cache_cut_short(caches, tmp_path, keep):
+    """A cache file shorter than its header says (one caught mid-write) is
+    refused, not read past its end (which faults). The JAX loader reads such
+    a file unchecked, so it is not called here."""
+    hp, lp, _ = caches[2]
+    data = open(hp[0], "rb").read()
+    header = 10 + int.from_bytes(data[8:10], "little")
+    cut = {"half_header": header // 2, "header_only": header,
+           "part_of_payload": header + 100, "all_but_one_byte": len(data) - 1}[keep]
+    (tmp_path / "x.npy").write_bytes(data[:cut])
+    with pytest.raises(LoaderRejected, match="cannot index"):
+        NativeTrainLoader([str(tmp_path / "x.npy")], [lp[0]], patch_size=PATCH, scale=2,
+                          batch_size=1)
+    # the whole file is taken
+    (tmp_path / "y.npy").write_bytes(data)
+    assert len(NativeTrainLoader([str(tmp_path / "y.npy")], [lp[0]], patch_size=PATCH,
+                                 scale=2, batch_size=1, repeat=2)) == 2
+
+
+def test_cache_files_appear_whole(tmp_path, monkeypatch):
+    """The dataset writes each npy cache file under a name of its own and
+    renames it into place, so a rank converting the same tree at the same
+    time sees either no file or the whole one; a second conversion over a
+    file already mapped leaves the mapping's values as they were."""
+    from m2trans_tpu_torch.data import us1k
+
+    root = write_tree(tmp_path / "d", np.random.default_rng(6))
+    writes = []
+    save = np.save
+
+    def watched_save(f, arr):
+        final = f.name.rsplit(".tmp", 1)[0]
+        writes.append((f.name, final))
+        assert f.name != final and final.endswith(".npy")
+        assert not os.path.exists(final) or np.array_equal(np.load(final), arr)
+        save(f, arr)
+
+    monkeypatch.setattr(us1k.np, "save", watched_save)
+    cfg = Config(**dict(tree_kw(root, tmp_path), native_loader=True))
+    loader_, _ = create_datasets(cfg)
+    assert isinstance(loader_, NativeTrainLoader)
+    assert len(writes) == 2 * 3  # HR and LR of the three training images
+    cache = root / "us1k_cache"
+    assert not [p for p in cache.rglob("*") if ".tmp" in p.name]
+    ds = us1k.US1KDataset(str(root / "US1K/US1K_train_HR"),
+                          str(root / "US1K/US1K_train_LR_bicubic"), str(cache),
+                          scale=2, start_idx=1, end_idx=4)
+    assert len(writes) == 2 * 3  # the cache was there: nothing written again
+    mapped = np.load(ds.hr_npy[0], mmap_mode="r")
+    want = np.array(mapped)
+    ds._convert(str(root / "US1K/US1K_train_HR/0001.png"), ds.hr_npy[0])
+    assert len(writes) == 2 * 3 + 1
+    np.testing.assert_array_equal(mapped, want)
+    np.testing.assert_array_equal(np.load(ds.hr_npy[0]), want)
