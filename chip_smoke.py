@@ -45,7 +45,7 @@ the launches its capture counts, event, device and host ms eager vs
 replay, the memory its captures hold, the Trainer's steps/s with and
 without graphs and the train CLI's, and the eval forward's graphs: the
 eval's s/frame split into reads, forward and metrics, eager and replayed,
-and the eval CLI's lines against an eager evaluation; last (phase 24) the
+and the eval CLI's lines against an eager evaluation; then (phase 24) the
 augmentations inside the train step's graph (L1 bf16 with the kernels and
 the recipe, 8 steps, replay vs eager bit for bit, how often each fired,
 host ms of the augmentations and of the graphed device part), the
@@ -54,11 +54,18 @@ later validations capture nothing and equal eager ones, their s/frame
 split, and the metrics graphs' rows against the eager rows; then (phases
 25-30) the measurement tools of ``m2trans_tpu_torch/tools/`` at short
 settings, each printing its JSON line: the single-frame latency, the
-scales, batch 64 by micro-batch, the recipe's step at batch 8 (3 replayed
-steps bit for bit against eager), the roofline of the forward and the L1
-step, and the whole recipe through the train CLI for an epoch with a
-release-format ``pytorch_model.bin``, ``vocab.txt`` and UTF-16 captions
-(the port's own tokenizer). The CLIs and
+scales, batch 64 by micro-batch, the recipe's step and the x2 / x3 L1
+step at batch 8 (3 replayed steps bit for bit against eager), the
+roofline of the forward and the L1 step, and the whole recipe through the
+train CLI for an epoch with a release-format ``pytorch_model.bin``,
+``vocab.txt`` and UTF-16 captions (the port's own tokenizer); last (phase
+31) the shipped x2 and x3 configurations at full width: the train step of
+``configs/M2Trans_x{2,3}.yml`` in bf16 with the kernels and the
+augmentations (3 replayed steps against eager bit for bit, the launches
+of a capture, the gradients against the plain bf16 step's), the shipped
+f32 step, and the train, eval (``_test`` ymls, f32 against bf16, graphed
+against eager) and infer CLIs (graphed against eager) on frames
+whose HR sides are no multiple of the scale. The CLIs and
 Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -167,11 +174,25 @@ def ff_case(shape, seed=0):
     return oc, x, ff_weight_hwio(w), b
 
 
+def smooth_frame(rng, h, w):
+    """A smooth u8 frame of h x w x 3: a sum of random sinusoids plus a
+    little noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w, 3))
+    for _ in range(6):
+        fy, fx = rng.uniform(0.005, 0.08, 2)
+        img += rng.uniform(0.2, 1.0, 3) * np.sin(
+            2 * np.pi * (fy * yy + fx * xx) + rng.uniform(0, 6.28))[..., None]
+    img = (img - img.min()) / (img.max() - img.min())
+    return np.clip(img * 255 + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+
+
 def write_benchmark_tree(root, rng, shapes):
     """Synthetic CCA-US (benchmark/UI5) tree for the x4 eval CLI: smooth HR
-    frames of the LR ``shapes`` times 4 (sums of random sinusoids plus a
-    little noise), LR x4 by striding, written as JPEGs with Pillow."""
-    import numpy as np
+    frames of the LR ``shapes`` times 4, LR x4 by striding, written as
+    JPEGs with Pillow."""
     from PIL import Image
 
     hr_dir = os.path.join(root, "benchmark/UI5/HR")
@@ -179,17 +200,32 @@ def write_benchmark_tree(root, rng, shapes):
     os.makedirs(hr_dir)
     os.makedirs(lr_dir)
     for i, (h, w) in enumerate(shapes):
-        yy, xx = np.mgrid[0:4 * h, 0:4 * w].astype(np.float64)
-        img = np.zeros((4 * h, 4 * w, 3))
-        for _ in range(6):
-            fy, fx = rng.uniform(0.005, 0.08, 2)
-            img += rng.uniform(0.2, 1.0, 3) * np.sin(
-                2 * np.pi * (fy * yy + fx * xx) + rng.uniform(0, 6.28))[..., None]
-        img = (img - img.min()) / (img.max() - img.min())
-        u8 = np.clip(img * 255 + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+        u8 = smooth_frame(rng, 4 * h, 4 * w)
         Image.fromarray(u8).save(os.path.join(hr_dir, f"e{i}.jpg"), quality=95)
         Image.fromarray(u8[::4, ::4]).save(os.path.join(lr_dir, f"e{i}x4.jpg"),
                                            quality=95)
+
+
+def write_eval_sets(root, rng, scale, hr_shapes, sets=("UI5", "US15", "US1K_23")):
+    """Synthetic eval sets under ``root/benchmark`` (CCA-US = UI5, US-CASE =
+    US15, US1K_23): a smooth HR frame of each of ``hr_shapes`` a set, its
+    LR x``scale`` by striding the largest multiple of ``scale`` of each
+    side (a bicubic LR's size), JPEGs (US1K_23's LR a PNG, as the loader
+    reads it), written with Pillow."""
+    from PIL import Image
+
+    for name in sets:
+        hr_dir = os.path.join(root, "benchmark", name, "HR")
+        lr_dir = os.path.join(root, "benchmark", name, "LR_bicubic", f"X{scale}")
+        os.makedirs(hr_dir)
+        os.makedirs(lr_dir)
+        ext = ".png" if name == "US1K_23" else ".jpg"
+        for i, (h, w) in enumerate(hr_shapes):
+            u8 = smooth_frame(rng, h, w)
+            lr = u8[:h - h % scale:scale, :w - w % scale:scale]
+            Image.fromarray(u8).save(os.path.join(hr_dir, f"e{i}.jpg"), quality=95)
+            Image.fromarray(lr).save(os.path.join(lr_dir, f"e{i}x{scale}{ext}"),
+                                     quality=95)
 
 
 def parse_eval(out: str) -> dict:
@@ -281,22 +317,29 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96)):
-    """Synthetic US1K tree for the x4 training CLI: n HR PNGs of ``hr``
-    (at least a 384x384 patch) with LR x4 by striding, and one CCA-US
-    (benchmark/UI5) pair, written with Pillow."""
+def write_us1k_tree(root, rng, n=3, hr=(400, 392), eval_hr=(128, 96), scale=4):
+    """Synthetic US1K tree for the training CLI: n HR PNGs of ``hr`` (at
+    least a 384x384 patch, its sides multiples of ``scale``) with LR
+    x``scale`` by striding, and one CCA-US (benchmark/UI5) pair of
+    ``eval_hr`` (x4; none where ``eval_hr`` is None), written with
+    Pillow."""
     import numpy as np
     from PIL import Image
 
     dirs = {k: os.path.join(root, v) for k, v in (
-        ("hr", "US1K/US1K_train_HR"), ("lr", "US1K/US1K_train_LR_bicubic/X4"),
+        ("hr", "US1K/US1K_train_HR"), ("lr", f"US1K/US1K_train_LR_bicubic/X{scale}"),
         ("bhr", "benchmark/UI5/HR"), ("blr", "benchmark/UI5/LR_bicubic/X4"))}
-    for d in dirs.values():
-        os.makedirs(d, exist_ok=True)
+    os.makedirs(dirs["hr"], exist_ok=True)
+    os.makedirs(dirs["lr"], exist_ok=True)
     for i in range(1, n + 1):
         img = rng.integers(0, 256, (*hr, 3), dtype=np.uint8)
         Image.fromarray(img).save(os.path.join(dirs["hr"], f"{i:04d}.png"))
-        Image.fromarray(img[::4, ::4]).save(os.path.join(dirs["lr"], f"{i:04d}x4.png"))
+        Image.fromarray(img[::scale, ::scale]).save(
+            os.path.join(dirs["lr"], f"{i:04d}x{scale}.png"))
+    if eval_hr is None:
+        return
+    os.makedirs(dirs["bhr"], exist_ok=True)
+    os.makedirs(dirs["blr"], exist_ok=True)
     img = rng.integers(0, 256, (*eval_hr, 3), dtype=np.uint8)
     Image.fromarray(img).save(os.path.join(dirs["bhr"], "b0.jpg"))
     Image.fromarray(img[::4, ::4]).save(os.path.join(dirs["blr"], "b0x4.jpg"))
@@ -1825,7 +1868,8 @@ def tools_phase() -> dict:
     512x512, 64 frames a size and output; (26) x4 / x3 / x2 at 384x384
     output, one chain pair each; (27) batch 64 at micro-batch 8 and 64;
     (28) the recipe's step at batch 8, 3 replayed steps bit for bit against
-    3 eager steps; (29) the roofline of the x4 forward and the L1 step;
+    3 eager steps, and the L1 step so at ``--scale 2`` and ``--scale 3``;
+    (29) the roofline of the x4 forward and the L1 step;
     (30) the train CLI for one epoch of the whole recipe on 4 training
     images, through the port's tokenizer and a release-format
     ``pytorch_model.bin`` written by ``medclip_release_state_dict``. The
@@ -1895,6 +1939,20 @@ def tools_phase() -> dict:
     need(positive(entry["ms_queued"]) and positive(entry["device_ms"])
          and all(n == {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
                  for n in entry["launches_per_capture"]), f"phase 28: {entry}")
+    for scale in (2, 3):  # the train step at x2 / x3, HR 384 (LR 192 / 128)
+        name = f"bench_clip_train x{scale}"
+        step = drive(28, name, bench_clip_train,
+                     ["--scale", str(scale), "--batches", "8", "--kinds", "L1",
+                      "--pairs", "1"], fwd + ("cftm_branch_bwd", "tail_band_bwd"))
+        need(step["metric"] == f"x{scale}_train_step_ms"
+             and (step["config"]["scale"], step["config"]["lr_hw"]) == (scale, 384 // scale)
+             and step["replay_vs_eager"] == {"L1 b8": "bit for bit"},
+             f"phase 28 {name}: {step['metric']}, {step['config']}, "
+             f"{step['replay_vs_eager']}")
+        entry = step["steps"]["L1 b8"]
+        need(positive(entry["ms_queued"]) and positive(entry["device_ms"])
+             and all(n == {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+                     for n in entry["launches_per_capture"]), f"phase 28 {name}: {entry}")
     roof = drive(29, "roofline", roofline, ["--programs", "fwd-x4", "step-L1"],
                  fwd + ("cftm_branch_bwd", "tail_band_bwd"))
     for name, entry in roof["programs"].items():
@@ -1906,6 +1964,357 @@ def tools_phase() -> dict:
          and len(full["val_trajectory"]) == 1
          and math.isfinite(full["val_trajectory"][0]["psnr"]), f"phase 30: {full}")
     return counts
+
+
+SCALES = (2, 3)               # phase 31: the shipped x2 / x3 configurations
+SCALE_HR = 384                # their train step's HR side: LR 192 / 128
+SCALE_TRAIN_HR = (408, 396)   # US1K training frames, sides multiples of 2 and 3
+# eval and validation frames whose HR sides are multiples neither of 2 or 3
+# nor of 32 * s: the crop to s x LR and the LR's pad to 32 both act
+SCALE_EVAL_HR = ((401, 299), (257, 331))
+SCALE_INFER = {"f0.png": (120, 160), "f1.png": (120, 160), "f2.png": (75, 101)}
+
+
+def start(cmd, log):
+    """``cmd`` as a process from the checkout's root, its output in
+    ``log``.out / .err."""
+    out, err = open(log + ".out", "w"), open(log + ".err", "w")
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err), log, out, err
+
+
+def finish(started, what, timeout=600) -> str:
+    """Wait for a process of :func:`start` and return its output; a process
+    still running at ``timeout`` is killed and fails the phase."""
+    proc, log, out, err = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    out.close()
+    err.close()
+    with open(log + ".err") as f:
+        need(rc == 0, f"{what} exited {rc}:\n{f.read()[-8000:]}")
+    with open(log + ".out") as f:
+        return f.read()
+
+
+def scales_phase(dev, work) -> dict:
+    """Phase 31: the shipped x2 and x3 configurations at full width
+    (``configs/M2Trans_x{2,3}.yml`` and ``_test.yml``: n_feats 64, 8 blocks,
+    seeded weights). (a) The train step of the training yml in bf16 with
+    the kernels, batch 2 as shipped, LR ``384 // s`` square, cutmix, cutout
+    and noise on: 3 replayed steps against 3 eager steps, losses,
+    parameters and Adam's state bit for bit (or, where two eager runs
+    differ, within PERF.md §2's bound); the launches of a capture equal
+    the eager step 1's (32 K1, 8 K3, 1 K2, 32 K1b, 1 K2b); the kernel
+    step's gradients against the plain bf16 step's within max(STEP_TOL,
+    1.5 e); the shipped f32 yml's step, one, finite, no kernel. (b)
+    ``python -m m2trans_tpu_torch.train`` in bf16 with the kernels and the
+    augmentations, 2 epochs of 3 steps on a US1K tree with X2 / X3 LR
+    folders (the C++ loader), validating on a
+    CCA-US set of two frames whose HR sides are no multiple of s: finite
+    losses, both validations, each epoch's ``.pt`` loaded back by
+    ``load_params_any``. (c) ``python -m m2trans_tpu_torch.test`` with the
+    ``_test`` yml and epoch 2's ``.pt`` on the three eval sets of such
+    frames: f32 against ``--dtype bfloat16`` within EVAL_TOL, and the
+    graphed CLI's lines equal to an eager evaluation's in each dtype. (d)
+    ``python -m m2trans_tpu_torch.infer`` on 3 PNGs, one of odd sides:
+    outputs s x the input, equal to an eager ``StreamingSR(graphs=False)``
+    stream's. The CLIs run as processes beside the in-process checks, so
+    the phase times nothing. Returns the launches of a train capture by
+    scale."""
+    import math
+
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from m2trans_tpu_torch import test as eval_cli
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.data.pipeline import create_datasets
+    from m2trans_tpu_torch.models.m2trans import init_m2trans
+    from m2trans_tpu_torch.parallel.streaming import StreamingSR
+    from m2trans_tpu_torch.train.checkpoint import checkpoint_path, load_params_any
+    from m2trans_tpu_torch.train.evaluate import evaluate_all
+    from m2trans_tpu_torch.train.graphed import COUNTED, LOSS_NAMES
+    from m2trans_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
+    step_want = {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+
+    def counts():
+        return {k: f.launches for k, f in COUNTED.items()}
+
+    def zero():
+        for f in COUNTED.values():
+            f.launches = 0
+
+    def dump(obj, path):
+        with open(path, "w") as f:
+            yaml.dump(obj, f)
+        return path
+
+    def shipped(s, test=False):
+        with open(os.path.join(ROOT, "configs", f"M2Trans_x{s}{'_test' if test else ''}.yml")) as f:
+            return yaml.safe_load(f)
+
+    started, lines, capture = [], [], {}
+    root = tempfile.mkdtemp(dir=work)
+    try:
+        # (b) the train CLIs start first and run beside (a)
+        train = {}
+        for s in SCALES:
+            d = os.path.join(root, f"x{s}")
+            data = os.path.join(d, "data")
+            write_us1k_tree(data, np.random.default_rng(310 + s), hr=SCALE_TRAIN_HR,
+                            eval_hr=None, scale=s)
+            write_eval_sets(data, np.random.default_rng(320 + s), s, SCALE_EVAL_HR,
+                            sets=("UI5",))
+            ycfg = shipped(s)
+            ycfg.update(dtype="bfloat16", use_pallas=True, cutmix=True, cutout=True,
+                        data_add_noise=True, data_path=data, train_range=[1, 4],
+                        data_repeat=2, epochs=2, log_every=1, eval_sets=["CCA-US"],
+                        log_path=os.path.join(d, "exp"), threads=2)
+            yml = dump(ycfg, os.path.join(d, "train.yml"))
+            train[s] = start([sys.executable, "-m", "m2trans_tpu_torch.train",
+                              "--config", yml], os.path.join(d, "train"))
+            started.append(train[s])
+
+        # (a) the train step at full width
+        for s in SCALES:
+            ship = load_config(os.path.join(ROOT, "configs", f"M2Trans_x{s}.yml"))
+            need((ship.scale, ship.n_feats, ship.n_blocks, ship.batch_size, ship.dtype)
+                 == (s, 64, 8, 2, "float32"), f"x{s} shipped config {ship}")
+            hw = SCALE_HR // s
+            gen = torch.Generator().manual_seed(30 + s)
+            lr_b = torch.rand(2, hw, hw, 3, generator=gen).to(dev)
+            hr_b = torch.rand(2, SCALE_HR, SCALE_HR, 3, generator=gen).to(dev)
+            c = ship.replace(dtype="bfloat16", use_pallas=True, cutmix=True,
+                             data_add_noise=True)
+
+            def make(cc, graphs):
+                m = init_m2trans(cc, seed=0, device=dev)
+                opt = make_optimizer(cc, m)
+                return m, opt, make_train_step(cc, m, opt, graphs=graphs)
+
+            def run_steps(cc, graphs, n=3):
+                """n steps from init seed 0: [losses, *parameters, *Adam's
+                state], the step, and the launches of step 1 (eager)."""
+                m, opt, st = make(cc, graphs)
+                losses, first = [], None
+                for i in range(n):
+                    aux = st(lr_b, hr_b, rng=np.random.default_rng(310 + i),
+                             do_cutout=True)
+                    losses.append(torch.stack([aux[k] for k in LOSS_NAMES]))
+                    if i == 0:
+                        torch.cuda.synchronize()
+                        first = counts()
+                torch.cuda.synchronize()
+                flat = [torch.stack(losses)] + [p.detach().clone() for p in m.parameters()] + [
+                    v.clone() for p in m.parameters() if p in opt.state
+                    for v in opt.state[p].values()]
+                return flat, st, first
+
+            zero()
+            eager, _, step1 = run_steps(c, False)
+            need(step1 == step_want, f"x{s}: eager step 1 launched {step1}, want {step_want}")
+            again, _, _ = run_steps(c, False)
+            zero()
+            graphed, st, _ = run_steps(c, True)
+            around = counts()
+            runner = st.graphed
+            need(runner is not None and (runner.captures, runner.replays) == (1, 3),
+                 f"x{s}: graphs {runner and (runner.captures, runner.replays)}")
+            (cap,) = runner.capture_launches.values()
+            need(cap == step1, f"x{s}: a capture counted {cap}, eager step 1 {step1}")
+            need(around == {k: 2 * v for k, v in cap.items()},
+                 f"x{s}: launches around the capture {around} (the side-stream step "
+                 "and the capture; a replay counts none)")
+            need(all(torch_isfinite(t) for t in graphed), f"x{s}: replay not finite")
+            if all(torch.equal(a, b) for a, b in zip(eager, again)):
+                diff = [i for i, (a, b) in enumerate(zip(graphed, eager))
+                        if not torch.equal(a, b)]
+                need(not diff, f"x{s}: replay differs from eager in {len(diff)} tensors "
+                     f"(first {diff[:3]}), eager runs agree")
+                check = "bit for bit"
+            else:
+                init = [p.detach() for p in init_m2trans(c, seed=0, device=dev).parameters()]
+                worst = max(rel_l2(a - p0, b - p0) for a, b, p0 in zip(
+                    graphed[1:], eager[1:], init) if bool((b - p0).any()))
+                need(worst <= STEP_TOL, f"x{s}: two eager runs differ, and the replay's "
+                     f"updates are {worst:.3g} from eager's (> {STEP_TOL})")
+                check = f"eager itself not deterministic; updates within rel L2 {worst:.3g}"
+            capture[s] = cap
+            del eager, again, graphed, st, runner
+            grads, loss = {}, {}
+            for name, cc in (("kernels", c), ("plain", c.replace(use_pallas=False)),
+                             ("f32", c.replace(dtype="float32", use_pallas=False))):
+                m, _, st = make(cc, False)
+                loss[name] = float(st(lr_b, hr_b, rng=np.random.default_rng(330),
+                                      do_cutout=True)["loss"])
+                need(math.isfinite(loss[name]), f"x{s} {name}: loss {loss[name]}")
+                grads[name] = {n: p.grad for n, p in m.named_parameters() if p.requires_grad}
+            worst, worst_name, worst_e = 0.0, "", 0.0
+            for name, g in grads["kernels"].items():
+                need(g is not None and torch_isfinite(g), f"x{s}: gradient of {name}")
+                d = rel_l2(g, grads["plain"][name])
+                e = rel_l2(grads["plain"][name], grads["f32"][name])
+                need(d <= max(STEP_TOL, 1.5 * e),
+                     f"x{s} train step: {name} kernels vs plain bf16 rel L2 {d:.4g} > "
+                     f"max({STEP_TOL}, 1.5 * {e:.4g})")
+                if d > worst:
+                    worst, worst_name, worst_e = d, name, e
+            del grads
+            zero()
+            _, _, st = make(ship, True)
+            loss_ship = float(st(lr_b, hr_b)["loss"])
+            need(math.isfinite(loss_ship) and not any(counts().values()),
+                 f"x{s} shipped f32 step: loss {loss_ship}, launches {counts()}")
+            del st
+            torch.cuda.empty_cache()
+            lines.append(
+                f"x{s} train step (2x{hw}x{hw} -> {SCALE_HR}x{SCALE_HR}, bf16 + kernels, "
+                f"cutmix / cutout / noise): 3 steps replay vs eager {check}; a capture "
+                f"counts {cap} = eager step 1; loss kernels "
+                f"{loss['kernels']:.6f} plain bf16 {loss['plain']:.6f} f32 {loss['f32']:.6f}, "
+                f"gradients worst rel L2 vs plain bf16 {worst:.4g} ({worst_name}; plain "
+                f"bf16 vs f32 {worst_e:.4g}, bound {max(STEP_TOL, 1.5 * worst_e):.4g}); "
+                f"the shipped f32 step {loss_ship:.6f}, no kernel")
+
+        # (b) the train CLIs' results; (c), (d) the eval and infer CLIs start
+        evals, infers, tests = {}, {}, {}
+        for s in SCALES:
+            d = os.path.join(root, f"x{s}")
+            finish(train[s], f"x{s} train CLI")
+            exps = os.listdir(os.path.join(d, "exp"))
+            need(len(exps) == 1, f"x{s} experiment dirs {exps}")
+            exp = os.path.join(d, "exp", exps[0])
+            with open(os.path.join(exp, "log.txt")) as f:
+                log = f.read()
+            losses = [float(ln.split("loss: ", 1)[1].split(",")[0])
+                      for ln in log.splitlines() if ln.startswith("Epoch:")]
+            need(len(losses) == 6 and all(math.isfinite(v) for v in losses),
+                 f"x{s} train CLI losses {losses}")
+            val = [ln for ln in log.splitlines() if ln.startswith(f"[CCA-US-X{s}], PSNR/SSIM: ")]
+            need(len(val) == 2, f"x{s} train CLI validations {val}")
+            cfg_s = load_config(os.path.join(d, "train.yml"))
+            for epoch in (1, 2):
+                load_params_any(checkpoint_path(os.path.join(exp, "models"), s, epoch),
+                                cfg_s, device=dev)
+            pt = checkpoint_path(os.path.join(exp, "models"), s, 2)
+            ev = os.path.join(d, "eval")
+            write_eval_sets(ev, np.random.default_rng(340 + s), s, SCALE_EVAL_HR)
+            ycfg = shipped(s, test=True)
+            ycfg.update(data_path=ev, model_path=pt)
+            tests[s] = dump(ycfg, os.path.join(d, "test.yml"))
+            frames = os.path.join(d, "frames")
+            os.makedirs(frames)
+            rng = np.random.default_rng(350 + s)
+            for name, hw in SCALE_INFER.items():
+                Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+                    os.path.join(frames, name))
+            evals[s] = start([sys.executable, "-m", "m2trans_tpu_torch.test", "--config",
+                              tests[s], "--dtype", "bfloat16"], os.path.join(d, "test"))
+            infers[s] = start([sys.executable, "-m", "m2trans_tpu_torch.infer", "--config",
+                               tests[s], "--input", frames, "--output",
+                               os.path.join(d, "sr")], os.path.join(d, "infer"))
+            started += [evals[s], infers[s]]
+            lines.append(f"x{s} train CLI (bf16 + kernels, the augmentations, C++ loader): "
+                         f"2 epochs x 3 steps, losses {losses[0]:.4f} ... {losses[-1]:.4f} "
+                         f"finite, model_x{s}_{{1,2}}.pt load back; last: {val[-1].strip()}")
+
+        # (c) f32 in this process through the CLI's main, bf16 from its process;
+        # each CLI's lines against an eager evaluation of the same .pt
+        for s in SCALES:
+            buf = io.StringIO()
+            zero()
+            with contextlib.redirect_stdout(buf):
+                eval_cli.main(["--config", tests[s]])
+            need(not any(counts().values()), f"x{s} f32 eval launched {counts()}")
+            out = {"float32": buf.getvalue(),
+                   "bfloat16": finish(evals[s], f"x{s} eval CLI --dtype bfloat16")}
+            cfg = load_config(tests[s])
+            model = load_params_any(cfg.model_path, cfg, device=dev)
+            _, sets = create_datasets(cfg, train=False)
+            need([x["name"] for x in sets] == ["CCA-US", "US-CASE", "US1K_23"]
+                 and all(len(x["dataset"]) == len(SCALE_EVAL_HR) for x in sets),
+                 f"x{s} eval sets {[(x['name'], len(x['dataset'])) for x in sets]}")
+            metrics = {}
+            for dtype in out:
+                zero()
+                eager = evaluate_all(model, load_config(tests[s], overrides={
+                    "dtype": dtype, "use_pallas": True if dtype == "bfloat16" else None}),
+                    sets, full_metrics=True, graphs=False)
+                n = 3 * len(SCALE_EVAL_HR) * int(dtype == "bfloat16")
+                need(counts() == {**{k: v * n for k, v in fwd_want.items()},
+                                  "cftm_branch_bwd": 0, "tail_band_bwd": 0},
+                     f"x{s} eager eval {dtype} launched {counts()}")
+                want = "".join(f"[{k}-X{s}] PSNR:{m['psnr']:.2f},SSIM:{m['ssim']:.4f}\n"
+                               f"FSIM:{m['fsim']:.4f},GMSD:{m['gmsd']:.4f}\n"
+                               for k, m in eager.items())
+                need(out[dtype] == want, f"x{s} eval CLI {dtype} (graphs) printed "
+                     f"{out[dtype]!r}, an eager evaluation {want!r}")
+                metrics[dtype] = eager
+            for name, m in metrics["bfloat16"].items():
+                for key, val in m.items():
+                    tol = EVAL_TOL[0] if key == "psnr" else EVAL_TOL[1]
+                    need(abs(val - metrics["float32"][name][key]) <= tol + 1e-9,
+                         f"x{s} eval {name} bf16 {key} {val} vs f32 "
+                         f"{metrics['float32'][name][key]}: over {tol}")
+            lines.append(f"x{s} eval CLI (3 sets x {len(SCALE_EVAL_HR)} frames, HR "
+                         f"{SCALE_EVAL_HR}): graphed lines = eager, f32 / bf16 + kernels "
+                         + "; ".join(f"{k} {metrics['float32'][k]['psnr']:.4f} / "
+                                     f"{metrics['bfloat16'][k]['psnr']:.4f} dB"
+                                     for k in metrics["float32"]))
+            del model
+
+        # (d) the infer CLI's PNGs against an eager stream of the same frames
+        for s in SCALES:
+            d = os.path.join(root, f"x{s}")
+            report = json.loads(finish(infers[s], f"x{s} infer CLI").strip().splitlines()[-1])
+            graphs = report.get("cuda_graphs", {})
+            per = graphs.get("launches_per_capture", {})
+            shapes = sorted({f"1x{h}x{w}x3" for h, w in SCALE_INFER.values()})
+            need(report.get("frames") == len(SCALE_INFER) and graphs.get("captures") == 1
+                 and graphs.get("replays") == len(SCALE_INFER)
+                 and sorted(per) == shapes and all(v == fwd_want for v in per.values()),
+                 f"x{s} infer report {report}")
+            cfg = load_config(tests[s])
+            eager = StreamingSR(load_params_any(cfg.model_path, cfg, device=dev), cfg,
+                                depth=1, graphs=False)
+            names = sorted(SCALE_INFER)
+            lr = []
+            for name in names:
+                with Image.open(os.path.join(d, "frames", name)) as img:
+                    lr.append(np.asarray(img.convert("RGB"), np.float32)[None] / 255.0)
+            for name, sr in zip(names, eager.stream(lr)):
+                want = np.clip(sr[0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                h, w = SCALE_INFER[name]
+                with Image.open(os.path.join(d, "sr", name)) as img:
+                    got = np.asarray(img)
+                need(got.shape == (s * h, s * w, 3), f"x{s} {name}: shape {got.shape}")
+                need(np.array_equal(got, want), f"x{s} {name}: graphed PNG != eager stream")
+            lines.append(f"x{s} infer CLI: {len(names)} PNGs (LR "
+                         + ", ".join(f"{h}x{w}" for h, w in SCALE_INFER.values())
+                         + f") -> x{s}, equal to an eager StreamingSR(graphs=False) "
+                         f"stream's; p50 {report.get('p50_ms')} ms")
+            del eager
+    finally:
+        for proc, _, out, err in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    for ln in lines:
+        print(f"phase 31 {ln}")
+    print(f"phase 31 in {time.perf_counter() - t0:.1f} s")
+    return capture
 
 
 def run() -> dict:
@@ -2622,6 +3031,11 @@ def run() -> dict:
     # after)
     tools_phase()
 
+    # 31. the shipped x2 and x3 configurations at full width: the train
+    # step, the train, eval and infer CLIs (the launch counts set to 0 just
+    # before each counted run and read just after)
+    scale_launches = scales_phase(dev, work)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -2649,6 +3063,8 @@ def run() -> dict:
          "launches_2d_mesh_per_rank": grid["launches"][0],
          "launches_graph_capture": graph_launches["cftm_branch"],
          "launches_train_graph_capture": train_graph_launches["cftm_branch"],
+         "launches_train_graph_capture_x2": scale_launches[2]["cftm_branch"],
+         "launches_train_graph_capture_x3": scale_launches[3]["cftm_branch"],
          "launches_ddp_step_per_rank": par["ddp_step"][0]},
         {"name": "tail_band", "route": "cuda", "source": csrc + "tail_band.cu",
          "replaces": pallas + "tail_band.py:118",
@@ -2659,6 +3075,8 @@ def run() -> dict:
          "launches_2d_mesh_per_rank": grid["launches"][2],
          "launches_graph_capture": graph_launches["tail_band"],
          "launches_train_graph_capture": train_graph_launches["tail_band"],
+         "launches_train_graph_capture_x2": scale_launches[2]["tail_band"],
+         "launches_train_graph_capture_x3": scale_launches[3]["tail_band"],
          "launches_ddp_step_per_rank": par["ddp_step"][2]},
         {"name": "cftm_branch_bwd", "route": "cuda",
          "source": csrc + "cftm_branch_bwd.cu",
@@ -2670,6 +3088,8 @@ def run() -> dict:
          "device_ms_by_level": k1b_dev, "variant_by_level": k1b_variant,
          "bound_ms_by_level": {i: k1b_bound[i]["bound_ms"] for i in range(3)},
          "launches_train_graph_capture": train_graph_launches["cftm_branch_bwd"],
+         "launches_train_graph_capture_x2": scale_launches[2]["cftm_branch_bwd"],
+         "launches_train_graph_capture_x3": scale_launches[3]["cftm_branch_bwd"],
          "launches_ddp_step_per_rank": par["ddp_step"][3]},
         {"name": "tail_band_bwd", "route": "cuda", "source": csrc + "tail_band_bwd.cu",
          "replaces": pallas + "tail_band.py:438",
@@ -2681,6 +3101,8 @@ def run() -> dict:
          "variant_by_level": {f"x{sc}": f"{sc * sc} roles, one a phase block"
                               for sc in (2, 3, 4)},
          "launches_train_graph_capture": train_graph_launches["tail_band_bwd"],
+         "launches_train_graph_capture_x2": scale_launches[2]["tail_band_bwd"],
+         "launches_train_graph_capture_x3": scale_launches[3]["tail_band_bwd"],
          "launches_ddp_step_per_rank": par["ddp_step"][4]},
         {"name": "ff_conv", "route": "cuda", "source": csrc + "ff_conv.cu",
          "replaces": pallas + "ff_pair.py:60",
@@ -2691,6 +3113,8 @@ def run() -> dict:
          "launches_2d_mesh_per_rank": grid["launches"][1],
          "launches_graph_capture": graph_launches["ff_conv"],
          "launches_train_graph_capture": train_graph_launches["ff_conv"],
+         "launches_train_graph_capture_x2": scale_launches[2]["ff_conv"],
+         "launches_train_graph_capture_x3": scale_launches[3]["ff_conv"],
          "launches_ddp_step_per_rank": par["ddp_step"][1]},
         {"name": "halo_attn_qkv", "route": "cuda", "source": csrc + "cftm_branch.cu",
          "replaces": pallas + "halo_attn.py:253",

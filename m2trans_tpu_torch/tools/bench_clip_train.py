@@ -1,16 +1,18 @@
-"""The x4 train step of the port, L1 and the paper's recipe, at batch 2 and
-8; the counterpart of scripts/bench_clip_train.py and
-scripts/bench_clip_wired.py.
+"""The train step of the port, L1 and the paper's recipe, at batch 2 and 8,
+at x4 (default), x3 or x2; the counterpart of scripts/bench_clip_train.py,
+scripts/bench_clip_wired.py and scripts/ab_train_scales.py.
 
-    python -m m2trans_tpu_torch.tools.bench_clip_train [--batches 2 8]
-        [--kinds L1 recipe-f32 recipe-bf16] [--pairs 3]
-        [--n-blocks 8] [--device cuda|cpu] [--out PATH]
+    python -m m2trans_tpu_torch.tools.bench_clip_train [--scale 4|3|2]
+        [--batches 2 8] [--kinds L1 recipe-f32 recipe-bf16] [--pairs 3]
+        [--hw LR_SIDE] [--n-blocks 8] [--device cuda|cpu] [--out PATH]
 
 The step the Trainer takes on one card (``train/loop.py::make_train_step``,
-replayed from ``train/graphed.py::GraphedTrainStep``): the x4 flagship
-(n_feats 64, 8 blocks, seeded weights) in bf16 with the kernels, LR frames
-of 96x96 and HR of 384x384 (seeded), cutmix, cutout and input noise on,
-drawn anew each step from a seeded host generator. ``L1`` is the L1 step;
+replayed from ``train/graphed.py::GraphedTrainStep``): the model at
+``--scale`` (n_feats 64, 8 blocks, seeded weights) in bf16 with the
+kernels, LR frames of ``384 // scale`` square (96 / 128 / 192; ``--hw``
+overrides it) and HR of ``scale`` times that, 384x384 at every scale
+(seeded), cutmix, cutout and input noise on, drawn anew each step from a
+seeded host generator. ``L1`` is the L1 step;
 ``recipe-f32`` / ``recipe-bf16`` add 0.01 x the MedCLIP semantic loss
 (MedCLIP at its published width, Swin-tiny 224 + BERT-base, seeded, in f32
 or bf16; 3 patches of 224x224 an image; token ids of length 64 from a seed,
@@ -26,7 +28,10 @@ For each kind and batch the last JSON line holds:
 - ``peak_gib``: ``max_memory_allocated`` over the model, Adam, the capture
   and the timed steps;
 - ``captures`` and ``launches_per_capture`` (the kernel wrappers' launches
-  in each capture: 32 K1, 8 K3, 1 K2, 32 K1b, 1 K2b).
+  in each capture: 32 K1, 8 K3, 1 K2, 32 K1b, 1 K2b at every scale).
+
+The line's ``metric`` is ``x{scale}_train_step_ms`` and ``config.scale``
+the scale.
 
 Before the profiler, at each batch of ``--batches`` above 2 (the batch the
 card first held the graphed step to eager at), 3 replayed steps are held
@@ -57,15 +62,18 @@ KINDS = ("L1", "recipe-f32", "recipe-bf16")
 STEP_TOL = 5e-2  # rel L2 of a parameter's update, replay vs eager (PERF.md §2)
 TOKENS = 64
 CHECK_STEPS = 3  # replayed steps held against eager steps
+HR_SIDE = 384  # the HR side at every scale (scripts/ab_train_scales.py's OUT)
 
 
-def step_config(kind: str, batch: int, n_feats: int = 64, n_blocks: int = 8):
-    """The Config of a kind: x4, bf16 with the kernels, cutmix, cutout and
-    noise; the recipe's ``lambda_clip`` 0.01 and MedCLIP's dtype."""
+def step_config(kind: str, batch: int, n_feats: int = 64, n_blocks: int = 8,
+                scale: int = 4):
+    """The Config of a kind at ``scale``: bf16 with the kernels, cutmix,
+    cutout and noise; the recipe's ``lambda_clip`` 0.01 and MedCLIP's
+    dtype."""
     from m2trans_tpu_torch.config import Config
 
     recipe = kind != "L1"
-    return Config(scale=4, n_feats=n_feats, n_blocks=n_blocks, batch_size=batch,
+    return Config(scale=scale, n_feats=n_feats, n_blocks=n_blocks, batch_size=batch,
                   dtype="bfloat16", use_pallas=True, cutmix=True, cutout=True,
                   data_add_noise=True, lambda_clip=0.01 if recipe else 0.0,
                   medclip_dtype="bfloat16" if kind == "recipe-bf16" else "float32")
@@ -87,14 +95,14 @@ class StepCase:
     """A kind's train step at a batch, from seeded weights and data."""
 
     def __init__(self, kind: str, batch: int, dev, fn=None, *, hw: int = 96,
-                 n_feats: int = 64, n_blocks: int = 8):
+                 n_feats: int = 64, n_blocks: int = 8, scale: int = 4):
         import torch
 
-        self.cfg = step_config(kind, batch, n_feats, n_blocks)
+        self.cfg = step_config(kind, batch, n_feats, n_blocks, scale)
         self.fn = fn if kind != "L1" else None
         gen = torch.Generator().manual_seed(1)
         self.lr = torch.rand(batch, hw, hw, 3, generator=gen).to(dev)
-        self.hr = torch.rand(batch, 4 * hw, 4 * hw, 3, generator=gen).to(dev)
+        self.hr = torch.rand(batch, scale * hw, scale * hw, 3, generator=gen).to(dev)
         self.caps = (captions(batch, self.fn.mcfg.text.vocab_size)
                      if self.fn is not None else None)
         self.dev = dev
@@ -168,10 +176,12 @@ def replay_vs_eager(case: StepCase, steps: int = 3) -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=int, default=4, choices=(2, 3, 4))
     ap.add_argument("--batches", type=int, nargs="+", default=[2, 8])
     ap.add_argument("--kinds", nargs="+", default=list(KINDS), choices=KINDS)
     ap.add_argument("--pairs", type=int, default=3)
-    ap.add_argument("--hw", type=int, default=96, help="LR side")
+    ap.add_argument("--hw", type=int, default=None,
+                    help=f"LR side (default {HR_SIDE} // scale)")
     ap.add_argument("--n-blocks", type=int, default=8)
     ap.add_argument("--n-feats", type=int, default=64)
     ap.add_argument("--medclip-tiny", action="store_true",
@@ -180,6 +190,7 @@ def main(argv=None) -> dict:
                     help="cuda (default; fails without a CUDA device) or cpu")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     args = ap.parse_args(argv)
+    hw = args.hw or HR_SIDE // args.scale
 
     import numpy as np
     import torch
@@ -199,8 +210,8 @@ def main(argv=None) -> dict:
                                        clip_size=56 if args.medclip_tiny else 224)
 
     def case(kind, batch):
-        return StepCase(kind, batch, dev, fns[kind], hw=args.hw, n_feats=args.n_feats,
-                        n_blocks=args.n_blocks)
+        return StepCase(kind, batch, dev, fns[kind], hw=hw, n_feats=args.n_feats,
+                        n_blocks=args.n_blocks, scale=args.scale)
 
     steps: Dict[str, dict] = {}
     for kind in args.kinds:
@@ -244,13 +255,13 @@ def main(argv=None) -> dict:
         entry["device_ms"] = device_ms(lambda: c.call(step, rng), n=5, warm=2)
         del model, opt, step
         torch.cuda.empty_cache()
-    line = {"metric": "x4_train_step_ms", "unit": "ms",
+    line = {"metric": f"x{args.scale}_train_step_ms", "unit": "ms",
             "method": "cuda_graph_slope of queued steps (chains of 2 / 12); events; "
                       "profiler",
             "steps": steps, "replay_vs_eager": checks, **card(dev),
-            "config": {"scale": 4, "n_feats": args.n_feats, "n_blocks": args.n_blocks,
-                       "lr_hw": args.hw, "dtype": "bfloat16", "use_pallas": True,
-                       "cutmix": True, "cutout": True, "data_add_noise": True,
+            "config": {"scale": args.scale, "n_feats": args.n_feats,
+                       "n_blocks": args.n_blocks, "lr_hw": hw, "dtype": "bfloat16",
+                       "use_pallas": True, "cutmix": True, "cutout": True, "data_add_noise": True,
                        "lambda_clip": 0.01, "medclip": "tiny" if args.medclip_tiny
                        else "Swin-tiny 224 + BERT-base", "tokens": TOKENS,
                        "pairs": args.pairs, "check_steps": CHECK_STEPS, "seed": 0}}
