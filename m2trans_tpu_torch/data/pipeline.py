@@ -31,6 +31,7 @@ from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.benchmark import BenchmarkDataset
 from m2trans_tpu_torch.data.us1k import US1KDataset
 from m2trans_tpu_torch.runtime import LoaderRejected, NativeTrainLoader
+from m2trans_tpu_torch.utils.spans import LOADER_EPOCH, LOADER_NEXT, span
 
 EVAL_SET_DIRS = {
     "CCA-US": "benchmark/UI5",
@@ -52,7 +53,10 @@ def rank_rows(batch: int, rank: int, ranks: int) -> slice:
 
 
 class TrainLoader:
-    """Shuffled, threaded, prefetching batch iterator over a US1KDataset."""
+    """Shuffled, threaded, prefetching batch iterator over a US1KDataset.
+    In a profiler trace an epoch's set-up (the order, the workers' start) is
+    the span ``m2t::loader.epoch`` and each batch, the wait for it and its
+    hand-out, ``m2t::loader.next`` (``utils/spans.py``)."""
 
     def __init__(
         self,
@@ -83,6 +87,20 @@ class TrainLoader:
         return n // self.batch_size
 
     def __iter__(self):
+        with span(LOADER_EPOCH, self.epoch):
+            stop, next_batch, n_batches = self._start_epoch()
+        try:
+            for b in range(n_batches):
+                with span(LOADER_NEXT, b):
+                    batch = next_batch(b)
+                yield batch
+        finally:
+            stop()
+
+    def _start_epoch(self):
+        """The epoch's order and its workers, started; returns ``stop()``,
+        ``next_batch(b)`` (waits for batch b and hands it out) and the
+        number of batches."""
         n = len(self.dataset)
         epoch = self.epoch
         order_rng = np.random.default_rng((self.seed, epoch))
@@ -148,32 +166,33 @@ class TrainLoader:
                     results[b] = batch
                     cv.notify_all()
 
+        def next_batch(b):
+            with cv:
+                waited = 0.0
+                while b not in results:
+                    if errors:
+                        raise errors[0]
+                    cv.wait(timeout=60.0)
+                    waited += 60.0
+                    if waited >= 600.0:  # hangs must surface as errors
+                        raise RuntimeError(
+                            f"TrainLoader: batch {b} not produced "
+                            f"within {waited:.0f}s")
+                batch = results.pop(b)
+                state["consumed"] = b + 1
+                cv.notify_all()
+            return with_mask(b, batch)
+
+        def stop_workers():
+            with cv:
+                stop.set()
+                cv.notify_all()
+
         threads = [threading.Thread(target=worker, daemon=True)
                    for _ in range(self.num_workers)]
         for t in threads:
             t.start()
-
-        try:
-            for b in range(len(batches)):
-                with cv:
-                    waited = 0.0
-                    while b not in results:
-                        if errors:
-                            raise errors[0]
-                        cv.wait(timeout=60.0)
-                        waited += 60.0
-                        if waited >= 600.0:  # hangs must surface as errors
-                            raise RuntimeError(
-                                f"TrainLoader: batch {b} not produced "
-                                f"within {waited:.0f}s")
-                    batch = results.pop(b)
-                    state["consumed"] = b + 1
-                    cv.notify_all()
-                yield with_mask(b, batch)
-        finally:
-            with cv:
-                stop.set()
-                cv.notify_all()
+        return stop_workers, next_batch, len(batches)
 
 
 def create_datasets(

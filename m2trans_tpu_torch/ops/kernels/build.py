@@ -80,6 +80,7 @@ SIGNATURES = {
                     I, I, I, I, P],                # B H W C stream
     "m2t_ff_conv_smem": [I],
     "m2t_relayout": [P, P, I, I, I, I, I, I, I, P],  # src dst B H W g nb cb pack stream
+    "m2t_mark": [I, P],                            # which stream
 }
 
 _lock = threading.Lock()

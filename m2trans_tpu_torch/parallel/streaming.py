@@ -37,6 +37,13 @@ safe without further synchronisation. With a mesh the path stays eager:
 its collectives under gloo stage through host memory, which a CUDA graph
 cannot capture. ``graphs=False`` runs the eager forward too (the tests and
 ``chip_smoke.py`` compare the two).
+
+In a profiler trace each request shows as three host spans
+(``utils/spans.py``), each with the request's sequence number in the stream
+as its ``args``: ``m2t::stream.submit`` (all of the enqueue),
+``m2t::stream.wait`` (the host waiting on the request's event) and
+``m2t::stream.copy_out`` (the result copied out of the slot's pinned
+buffer; on the CPU, handed out).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from m2trans_tpu_torch.models.graphed import GraphedForward, served, serving_for
 from m2trans_tpu_torch.models.m2trans import ComputePolicy, M2Trans
 from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
+from m2trans_tpu_torch.utils.spans import STREAM_COPY_OUT, STREAM_SUBMIT, STREAM_WAIT, span
 
 
 class StreamingSR:
@@ -115,24 +123,25 @@ class StreamingSR:
                             dtype=torch.uint8 if self.output_u8 else torch.float32))
         return self._slots[key]
 
-    def _submit(self, frames: np.ndarray, slot: int):
-        """Enqueue one batch of frames; returns what :meth:`_take` needs.
-        CUDA: pinned upload, forward (a graph replay, or eager), copy back
-        into the slot's pinned buffer, all asynchronous, then an event. CPU:
-        the result itself."""
-        frames = np.asarray(frames, np.float32)
-        if self.device.type != "cuda":
-            return self._fwd(torch.from_numpy(frames)), None
-        pin_in, pin_out = self._pinned(slot, frames.shape)
-        pin_in.copy_(torch.from_numpy(frames))
-        if self.graphed is not None:
-            y = self.graphed(pin_in)
-        else:
-            y = self._fwd(pin_in.to(self.device, non_blocking=True))
-        pin_out.copy_(y, non_blocking=True)
-        done = torch.cuda.Event(enable_timing=True)
-        done.record(torch.cuda.current_stream(self.device))
-        return pin_out, done
+    def _submit(self, frames: np.ndarray, slot: int, seq=None):
+        """Enqueue one batch of frames (request ``seq`` of a stream); returns
+        what :meth:`_take` needs. CUDA: pinned upload, forward (a graph
+        replay, or eager), copy back into the slot's pinned buffer, all
+        asynchronous, then an event. CPU: the result itself."""
+        with span(STREAM_SUBMIT, seq):
+            frames = np.asarray(frames, np.float32)
+            if self.device.type != "cuda":
+                return self._fwd(torch.from_numpy(frames)), None
+            pin_in, pin_out = self._pinned(slot, frames.shape)
+            pin_in.copy_(torch.from_numpy(frames))
+            if self.graphed is not None:
+                y = self.graphed(pin_in)
+            else:
+                y = self._fwd(pin_in.to(self.device, non_blocking=True))
+            pin_out.copy_(y, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record(torch.cuda.current_stream(self.device))
+            return pin_out, done
 
     @staticmethod
     def _take(out: torch.Tensor, done) -> np.ndarray:
@@ -169,9 +178,13 @@ class StreamingSR:
             host0 = time.perf_counter()
 
         def pop():
-            out, done, t0 = inflight.popleft()
+            out, done, t0, seq = inflight.popleft()
             # CUDA: waits on this frame's event; later frames stay in flight
-            res = self._take(out, done)
+            if done is not None:
+                with span(STREAM_WAIT, seq):
+                    done.synchronize()
+            with span(STREAM_COPY_OUT, seq):  # the event has passed: the copy alone
+                res = self._take(out, done)
             if collect_stats:
                 landed = (time.perf_counter() if done is None
                           else host0 + base.elapsed_time(done) / 1e3)
@@ -182,7 +195,7 @@ class StreamingSR:
         # popped before frame n is submitted, so frame n takes slot n mod depth
         for n, frame in enumerate(frames):
             t0 = time.perf_counter()
-            inflight.append((*self._submit(frame, n % self.depth), t0))
+            inflight.append((*self._submit(frame, n % self.depth, n), t0, n))
             if len(inflight) >= self.depth:
                 yield pop()
         while inflight:

@@ -32,6 +32,7 @@ from typing import Sequence
 import numpy as np
 
 from m2trans_tpu_torch.ops.kernels.build import BUILD_DIR
+from m2trans_tpu_torch.utils.spans import LOADER_EPOCH, LOADER_NEXT, span
 
 SRC = Path(__file__).resolve().parent / "loader.cc"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
@@ -106,7 +107,9 @@ class NativeTrainLoader:
     package's ``NativeTrainLoader``): yields ``(lr, hr)`` float32 NHWC numpy
     batches, ``n_images * repeat // batch_size`` of them an epoch; each
     ``__iter__`` is the next epoch, deterministic per (seed, epoch). Takes
-    the uint8 npy cache of the ``colors == 3`` path."""
+    the uint8 npy cache of the ``colors == 3`` path. In a profiler trace an
+    epoch's start is the span ``m2t::loader.epoch`` and each batch, its wait
+    for the workers included, ``m2t::loader.next`` (``utils/spans.py``)."""
 
     def __init__(self, hr_npy: Sequence[str], lr_npy: Sequence[str], *,
                  patch_size: int, scale: int, batch_size: int, repeat: int = 5,
@@ -135,14 +138,16 @@ class NativeTrainLoader:
         return self.n_images * self.repeat // self.batch
 
     def __iter__(self):
-        steps = self._lib.loader_start_epoch(self._handle, self.epoch, self.repeat)
+        with span(LOADER_EPOCH, self.epoch):
+            steps = self._lib.loader_start_epoch(self._handle, self.epoch, self.repeat)
         self.epoch += 1
         lp = self.patch // self.scale
         for b in range(steps):
-            lr = np.empty((self.batch, lp, lp, self.channels), np.float32)
-            hr = np.empty((self.batch, self.patch, self.patch, self.channels),
-                          np.float32)
-            rc = self._lib.loader_next(self._handle, b, _floats(lr), _floats(hr))
+            with span(LOADER_NEXT, b):
+                lr = np.empty((self.batch, lp, lp, self.channels), np.float32)
+                hr = np.empty((self.batch, self.patch, self.patch, self.channels),
+                              np.float32)
+                rc = self._lib.loader_next(self._handle, b, _floats(lr), _floats(hr))
             if rc == -2:
                 raise RuntimeError("C++ loader: no batch within 5 minutes "
                                    "(a worker failed?)")

@@ -7,22 +7,18 @@ measurement tools of ``m2trans_tpu_torch/tools/`` and ``chip_smoke.py``.
   timed with CUDA events and the slope between them is the time a step,
   start-up and the final wait left out.
 - :func:`events`: CUDA events around single calls, median.
-- :func:`host`: host ms a call spends in ``record_function`` labels.
 - :func:`device_ms`, :func:`device_split`: device time from
   ``torch.profiler`` (CUPTI), the sum of the kernels of a call, so launch
   overhead and the gaps between kernels are left out; by kind of kernel in
   the split. A process that has run the profiler launches more slowly
   afterwards, so a tool profiles last.
-
-Nothing here imports the rest of the package: ``tools/step_host.py`` loads
-this file by its path to measure another checkout.
 """
 
 from __future__ import annotations
 
 import statistics
 import subprocess
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 GRAPH_N = (4, 36)    # chain lengths of a timed pair
 GRAPH_PAIRS = 5
@@ -94,22 +90,6 @@ def events(fn, n: int = 20, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def host(fn, labels: Sequence[str], n: int = 20) -> Dict[str, Optional[float]]:
-    """Host ms a call of ``fn`` spends in each ``record_function`` label,
-    from torch.profiler's CPU view over ``n`` calls (after one warm call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    got = {ev.key: ev.cpu_time_total / 1e3 / n for ev in prof.key_averages()}
-    return {k: got.get(k) for k in labels}
 
 
 def is_device_work(ev) -> bool:

@@ -49,11 +49,18 @@ Profiler traces (``profile_dir``): ``torch.profiler`` traces steps 6-10 of
 the run's first epoch (host activity, and the card's where the model lies on
 one) and writes ``<profile_dir>/trace_rank<r>.json``, a Chrome trace a rank.
 An epoch of fewer than 11 steps is traced to its end (JAX leaves that trace
-running). A step's host work is labelled in the trace: ``m2t::augment``
-(the draws, the noise's normal draw, and the staging of the draws, crop
-offsets and tokens) and ``m2t::device_step`` (the graph's replay, or the
-eager device part with the augmentations' applies). A process that has run ``torch.profiler`` launches
-kernels more slowly afterwards, so time nothing in it after a traced run.
+running). A step's host work is labelled in the trace (``utils/spans.py``):
+``m2t::augment`` (the draws, the noise's normal draw, and the staging of the
+draws, crop offsets and tokens) and ``m2t::device_step`` (the graph's
+replay, or the eager device part with the augmentations' applies). Its
+device part launches marks (``ops/kernels/marks.py``), which a replay runs
+too: ``semantic_fwd_begin`` / ``_end`` round the semantic loss's constant
+stage and, after the forward, its SR-side loss; ``semantic_bwd_begin`` /
+``_end`` its backward through the SR-side encoder (from hooks on the scaled
+loss and on the SR where it enters the loss); ``optimizer_begin`` / ``_end``
+round ``optimizer.step()``. A process that has run ``torch.profiler``
+launches kernels more slowly afterwards, so time nothing in it after a
+traced run.
 """
 
 from __future__ import annotations
@@ -66,7 +73,6 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.augment import Augment, augment_apply, draw_augment, normal_draw
@@ -78,6 +84,7 @@ from m2trans_tpu_torch.models.m2trans import (
     m2trans_apply,
     policy_from_config,
 )
+from m2trans_tpu_torch.ops.kernels import marks
 from m2trans_tpu_torch.ops.resize import bilinear_resize
 from m2trans_tpu_torch.parallel import mesh as mesh_lib
 from m2trans_tpu_torch.train import checkpoint as ckpt_lib
@@ -89,6 +96,7 @@ from m2trans_tpu_torch.utils.experiment import (
     get_stat_dict,
     setup_experiment,
 )
+from m2trans_tpu_torch.utils.spans import AUGMENT, DEVICE_STEP, span
 from m2trans_tpu_torch.utils.staging import HostStager
 
 
@@ -186,6 +194,13 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         def forward(x):
             return m2trans_apply(model, x, cfg, policy)
 
+    def mark_on_grad(name):
+        """A tensor hook that launches mark ``name`` when the tensor's
+        gradient is ready; it changes no gradient."""
+        def hook(_grad):
+            marks.mark(name, dev)
+        return hook
+
     def device_step(lr_img, hr_img, sample_mask, offsets, captions, aug) -> torch.Tensor:
         """The augmentations of the global batch, then the constant stage,
         forward, losses, backward and Adam on this rank's rows; (3,) loss,
@@ -197,9 +212,11 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         # (no_grad, not inference_mode: its tensors enter the loss below)
         clip_const = None
         if offsets is not None:
+            marks.mark(marks.SEMANTIC_FWD_BEGIN, dev)
             with torch.no_grad():
                 clip_const = semantic_loss_fn.const_stage_from_params(
                     semantic_loss_fn.model, hr_img, captions, offsets=offsets)
+            marks.mark(marks.SEMANTIC_FWD_END, dev)
 
         sr = forward(lr_img)
         if sample_mask is None:
@@ -209,14 +226,21 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
             mine = sample_mask[rank_rows(sample_mask.shape[0], rank, ranks)]
             l1 = (per * mine).sum() / sample_mask.sum() * ranks * cfg.lambda_l1
         if clip_const is not None:
+            marks.mark(marks.SEMANTIC_FWD_BEGIN, dev)
+            sr_in = sr.view_as(sr)  # its gradient is the semantic loss's alone
+            sr_in.register_hook(mark_on_grad(marks.SEMANTIC_BWD_END))
             clip = semantic_loss_fn.loss_staged_from_params(
-                semantic_loss_fn.model, sr, clip_const) * (cfg.lambda_clip * ranks)
+                semantic_loss_fn.model, sr_in, clip_const) * (cfg.lambda_clip * ranks)
+            clip.register_hook(mark_on_grad(marks.SEMANTIC_BWD_BEGIN))
+            marks.mark(marks.SEMANTIC_FWD_END, dev)
         else:
             clip = torch.zeros((), device=l1.device)
         loss = l1 + clip
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        marks.mark(marks.OPTIMIZER_BEGIN, dev)
         optimizer.step()
+        marks.mark(marks.OPTIMIZER_END, dev)
         return torch.stack([loss, l1, clip]).detach()
 
     graphed = None
@@ -237,7 +261,7 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
         rng = own_rng if rng is None else rng
         b, lh, lw = lr_img.shape[:3]
         rows = rank_rows(b, rank, ranks)
-        with record_function("m2t::augment"):
+        with span(AUGMENT):
             drawn, seed = draw_augment(rng, b, lh, lw, cutmix=cfg.cutmix,
                                        cutout_len=cutout_len if do_cutout else None,
                                        noise=cfg.data_add_noise)
@@ -263,7 +287,7 @@ def make_train_step(cfg: Config, model: M2Trans, optimizer: torch.optim.Optimize
                 offsets = (next(staged), next(staged))
                 tokens = {k: next(staged) for k in sorted(captions)}
         aug = Augment(mix, holes, noise, normal)
-        with record_function("m2t::device_step"):
+        with span(DEVICE_STEP):
             run = train_step.graphed or device_step
             out = run(lr_img, hr_img, sample_mask, offsets, tokens, aug)
         return dict(zip(LOSS_NAMES, out.unbind()))

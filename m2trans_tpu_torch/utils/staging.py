@@ -11,9 +11,9 @@ call is one copy per dtype, and come back as views of one device tensor.
 A buffer must not be rewritten while its copy may still be reading it, so
 there is a ring of ``SLOTS`` buffer sets: each set is reused only after the
 CUDA event recorded after its last copy has completed (with two, the host
-runs at most one call ahead of the copies). That wait is labelled
-``m2t::wait`` in a profiler trace: it is the host waiting for the device,
-not work. On the CPU the arrays are returned as tensors that share their
+runs at most one call ahead of the copies). That wait is the span
+``m2t::wait`` in a profiler trace (``utils/spans.py``): it is the host
+waiting for the device, not work. On the CPU the arrays are returned as tensors that share their
 memory, as ``torch.from_numpy`` does.
 """
 
@@ -23,8 +23,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from m2trans_tpu_torch.utils.spans import WAIT, span
 
 SLOTS = 2  # buffer sets in the ring
 
@@ -48,7 +48,7 @@ class HostStager:
         slot = self._next
         self._next = (slot + 1) % len(self._bufs)
         if self._events[slot] is not None:
-            with record_function("m2t::wait"):
+            with span(WAIT):
                 self._events[slot].synchronize()
         out: List = [None] * len(arrays)
         groups: Dict[np.dtype, List[int]] = {}
