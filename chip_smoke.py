@@ -58,15 +58,19 @@ scales, batch 64 by micro-batch, the recipe's step and the x2 / x3 L1
 step at batch 8 (3 replayed steps bit for bit against eager), the
 roofline of the forward and the L1 step, and the whole recipe through the
 train CLI for an epoch with a release-format ``pytorch_model.bin``,
-``vocab.txt`` and UTF-16 captions (the port's own tokenizer); last (phase
+``vocab.txt`` and UTF-16 captions (the port's own tokenizer); then (phase
 31) the shipped x2 and x3 configurations at full width: the train step of
 ``configs/M2Trans_x{2,3}.yml`` in bf16 with the kernels and the
 augmentations (3 replayed steps against eager bit for bit, the launches
 of a capture, the gradients against the plain bf16 step's), the shipped
 f32 step, and the train, eval (``_test`` ymls, f32 against bf16, graphed
 against eager) and infer CLIs (graphed against eager) on frames
-whose HR sides are no multiple of the scale. The CLIs and
-Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
+whose HR sides are no multiple of the scale; then (phase 32) MedCLIP's
+Swin window attention (``csrc/swin_attn.cu``) against its plain version at
+Swin-tiny's stage shapes, its device times beside its bound, the plain
+version's and masked ``scaled_dot_product_attention``'s, MedCLIP's parts
+and the x2 recipe step with the kernels and with the plain attention. The
+CLIs and Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
 phase prints one line and the first failure exits non-zero. The line
@@ -2317,6 +2321,229 @@ def scales_phase(dev, work) -> dict:
     return capture
 
 
+SWIN_BATCH = 6                 # phase 32: the recipe's patches, 2 images x 3
+# (map side, channels, heads, shift, blocks) of Swin-tiny's stages at 224
+SWIN_STAGES = ((56, 96, 3, 3, 2), (28, 192, 6, 3, 2), (14, 384, 12, 3, 6),
+               (7, 768, 24, 0, 2))
+# f32 kernels vs plain, every output: max|a - b| <= max(atol, rtol * max|b|)
+# (the sums run in another order than cuBLAS's; tests/test_torch_port_cuda.py)
+SWIN_TOL = (1e-5, 1e-4)
+
+
+@contextlib.contextmanager
+def plain_swin_attention():
+    """MedCLIP's Swin runs the plain version of its window attention, on the
+    card too, while the context is open: phase 32's before."""
+    from m2trans_tpu_torch.models.medclip import swin
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
+
+    kept = swin.window_attention
+    swin.window_attention = window_attention_plain
+    try:
+        yield
+    finally:
+        swin.window_attention = kept
+
+
+def swin_attn_phase(dev) -> dict:
+    """Phase 32, MedCLIP's window attention (``csrc/swin_attn.cu``). At each
+    stage of the recipe's Swin-tiny (6 patches of 224, f32, seeded
+    operands): the kernels against the plain version (output, dq, dk, dv;
+    a second run bit for bit); device ms (profiler) of the forward and of
+    forward + backward, beside their bound (bytes at 3.35 TB/s or f32 FMAs
+    at 67 TFLOP/s, the larger), the plain version's and, as the library
+    yardstick only, masked ``scaled_dot_product_attention``'s on windows
+    partitioned outside the timing. Then MedCLIP at its published width in
+    f32 and bf16, with the kernels and with the plain attention: device ms
+    and kernels of the HR-side forward and the SR-side forward + backward;
+    and the x2 recipe step (batch 2, LR 192, MedCLIP f32): the kernels'
+    launches (36 an eager step, 36 a capture, none a replay), event and
+    device ms of a replay, kernels a replay. Returns the kernel report's
+    row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from m2trans_tpu_torch.losses.semantic import (
+        SemanticLossFn,
+        clip_image_sims,
+        clip_text_embed,
+        crop_offsets,
+        semantic_loss_staged,
+    )
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.ops.kernels.swin_attn import (
+        relative_position_index,
+        shift_attn_mask,
+        window_attention,
+        window_attention_plain,
+        window_tokens,
+    )
+    from m2trans_tpu_torch.tools.bench_clip_train import StepCase
+    from m2trans_tpu_torch.utils.roofline import F32_FLOP_PER_S, bound, nbytes, swin_attn_flops
+
+    t0 = time.perf_counter()
+    stages, worst = {}, 0.0
+    for side, c, heads, shift, _ in SWIN_STAGES:
+        gen = torch.Generator().manual_seed(side)
+        q, k, v, gout = (torch.randn(SWIN_BATCH, side, side, c, generator=gen).to(dev)
+                         for _ in range(4))
+        table = torch.randn(169, heads, generator=gen).to(dev)
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def fwd(fn):
+            with torch.no_grad():
+                return fn(q, k, v, table, heads, 7, shift)
+
+        def fwd_bwd(fn):
+            out = fn(*ins, table, heads, 7, shift)
+            return [out.detach(), *torch.autograd.grad(out, ins, gout)]
+
+        got, want = fwd_bwd(window_attention), fwd_bwd(window_attention_plain)
+        need(all(torch.equal(a, b) for a, b in zip(got, fwd_bwd(window_attention))),
+             f"phase 32 {side}x{side}: two runs of the kernels differ")
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            need(err <= max(SWIN_TOL[0], SWIN_TOL[1] * top),
+                 f"phase 32 {side}x{side}: {name} kernel vs plain max err {err:.3g} "
+                 f"(max {top:.3g})")
+            worst = max(worst, err / max(top, 1e-30))
+
+        # the library yardstick, on windows partitioned outside the timing
+        n, hd = 49, c // heads
+        tok = torch.as_tensor(window_tokens(side, side, 7, shift), device=dev)
+
+        def windows(t):
+            t = t.detach().reshape(SWIN_BATCH, side * side, c)[:, tok]
+            return t.reshape(-1, n, heads, hd).transpose(1, 2).contiguous()
+
+        rpi = torch.as_tensor(relative_position_index(7), device=dev)
+        amask = table[rpi.reshape(-1)].reshape(n, n, heads).permute(2, 0, 1)[None]
+        if shift:
+            m = torch.as_tensor(shift_attn_mask(side, side, 7, shift), device=dev)
+            amask = (amask + m[:, None]).repeat(SWIN_BATCH, 1, 1, 1)
+        amask = amask.contiguous()
+        wq, wk, wv = (windows(t).requires_grad_(True) for t in (q, k, v))
+        wg = windows(gout)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(wq, wk, wv, attn_mask=amask)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(wq, wk, wv, attn_mask=amask)
+            torch.autograd.grad(o, [wq, wk, wv], wg)
+
+        ms = {"kernel": (device_ms(lambda: fwd(window_attention)),
+                         device_ms(lambda: fwd_bwd(window_attention))),
+              "plain": (device_ms(lambda: fwd(window_attention_plain)),
+                        device_ms(lambda: fwd_bwd(window_attention_plain))),
+              "library": (device_ms(lib_fwd), device_ms(lib_fwd_bwd))}
+        b_fwd = bound(nbytes(q, k, v, table, q), swin_attn_flops(q, heads), F32_FLOP_PER_S)
+        b_bwd = bound(nbytes(q, k, v, table, gout, q, k, v),
+                      swin_attn_flops(q, heads, backward=True), F32_FLOP_PER_S)
+        stages[f"{side}x{side}x{c}"] = {
+            "heads": heads, "shift": shift,
+            "bound_fwd_ms": b_fwd["bound_ms"], "bound_bwd_ms": b_bwd["bound_ms"],
+            "bound_by": b_fwd["bound_by"],
+            **{f"{who}_fwd_ms": f for who, (f, _) in ms.items()},
+            **{f"{who}_bwd_ms": None if None in (f, fb) else fb - f
+               for who, (f, fb) in ms.items()}}
+
+    def per_forward(key):  # one Swin-tiny pass: a stage's blocks each
+        vals = [stages[f"{s}x{s}x{c}"][key] for s, c, _, _, _ in SWIN_STAGES]
+        if None in vals:
+            return None
+        return sum(v * blocks for v, (_, _, _, _, blocks) in zip(vals, SWIN_STAGES))
+
+    # MedCLIP at its published width, f32 and bf16, kernels and plain
+    mcfg = MedCLIPConfig()
+    clip = init_medclip(mcfg, seed=4, device=dev)
+    fns = {"f32": SemanticLossFn(clip, mcfg, None),
+           "bf16": SemanticLossFn(clip, mcfg, None, dtype=torch.bfloat16)}
+    rng = np.random.default_rng(32)
+    sr, hr = (torch.from_numpy(rng.uniform(0, 1, (2, 384, 384, 3)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    ids = torch.from_numpy(rng.integers(5, mcfg.text.vocab_size, (2, 64))).to(dev)
+    tmask = torch.ones_like(ids)
+    offs = crop_offsets(rng, 2, 384, 384, 2, 224)
+    parts = {}
+    for dname, fn in fns.items():
+        with torch.no_grad():
+            t_emb = clip_text_embed(fn.model, ids, tmask)
+            sim_y = clip_image_sims(fn.model, hr, offs, t_emb)
+
+        def hr_side():
+            with torch.no_grad():
+                clip_image_sims(fn.model, hr, offs, t_emb)
+
+        def sr_side():
+            s = sr.bfloat16().requires_grad_(True)  # the step's sr is bf16
+            semantic_loss_staged(fn.model, s, offs, t_emb, sim_y).backward()
+
+        for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_swin_attention)):
+            with ctx():
+                parts[f"{dname} {label}"] = {"HR fwd": profile_call(hr_side),
+                                             "SR fwd+bwd": profile_call(sr_side)}
+
+    # the x2 recipe step, kernels and plain
+    case = StepCase("recipe-f32", 2, dev, fns["f32"], hw=192, scale=2)
+    steps = {}
+    for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_swin_attention)):
+        with ctx():
+            _, _, eager = case.make(graphs=False)
+            n0 = window_attention.launches
+            case.call(eager, np.random.default_rng(1))
+            torch.cuda.synchronize()
+            n1 = window_attention.launches
+            del eager
+            _, _, step = case.make(graphs=True)
+            case.call(step, np.random.default_rng(1))
+            torch.cuda.synchronize()
+            n2 = window_attention.launches
+            ev = time_ms(lambda: case.call(step, np.random.default_rng(2)), n=20)
+            n3 = window_attention.launches
+            prof = profile_call(lambda: case.call(step, np.random.default_rng(3)), n=5)
+            steps[label] = {"launches_eager": n1 - n0, "launches_side_and_capture": n2 - n1,
+                            "launches_replays": n3 - n2, "event_ms": ev,
+                            "device_ms": prof["ms"], "kernels_a_replay": prof["launches"]}
+            del step
+    got = steps["kernels"]
+    need((got["launches_eager"], got["launches_side_and_capture"], got["launches_replays"])
+         == (36, 72, 0), f"phase 32: the x2 recipe step launched the kernels {got}, want "
+         "36 eagerly, 36 + 36 around the capture (side-stream step, capture), 0 in replays")
+    need(steps["plain"]["launches_eager"] == 0, f"phase 32: plain launched {steps['plain']}")
+
+    medclip_txt = "; ".join(
+        f"{k}: " + ", ".join(f"{p} {fmt_ms(v['ms'])} ({v['launches']} kernels)"
+                             for p, v in d.items()) for k, d in parts.items())
+    print(f"phase 32 Swin window attention (f32, batch {SWIN_BATCH}; device ms kernel | plain | "
+          "masked SDPA on pre-partitioned windows, bound): "
+          + "; ".join(f"{k} fwd {fmt_ms(v['kernel_fwd_ms'])} | {fmt_ms(v['plain_fwd_ms'])} | "
+                      f"{fmt_ms(v['library_fwd_ms'])}, {v['bound_fwd_ms']:.4f}; bwd "
+                      f"{fmt_ms(v['kernel_bwd_ms'])} | {fmt_ms(v['plain_bwd_ms'])} | "
+                      f"{fmt_ms(v['library_bwd_ms'])}, {v['bound_bwd_ms']:.4f}"
+                      for k, v in stages.items())
+          + f"; worst err / max {worst:.3g}; MedCLIP (2 x 384^2, 3 patches) by part: "
+          + medclip_txt + "; x2 recipe step (batch 2, MedCLIP f32): "
+          + "; ".join(f"{k} {json.dumps(v)}" for k, v in steps.items())
+          + f"; phase 32 in {time.perf_counter() - t0:.1f} s")
+    return {"name": "swin_attn", "route": "cuda", "source": "m2trans_tpu_torch/csrc/swin_attn.cu",
+            "replaces": None, "launches": got["launches_eager"],
+            "launches_train_graph_capture_x2": got["launches_side_and_capture"] // 2,
+            "max_rel_err": worst, "bound_ms": per_forward("bound_fwd_ms"),
+            "bound_by": next(iter(stages.values()))["bound_by"],
+            "device_ms": per_forward("kernel_fwd_ms"),
+            "device_ms_bwd": per_forward("kernel_bwd_ms"),
+            "bound_ms_bwd": per_forward("bound_bwd_ms"),
+            "plain_ms": per_forward("plain_fwd_ms"), "plain_ms_bwd": per_forward("plain_bwd_ms"),
+            "library_ms": per_forward("library_fwd_ms"),
+            "library_ms_bwd": per_forward("library_bwd_ms"),
+            "by_stage": stages, "medclip_parts": {k: {p: v["ms"] for p, v in d.items()}
+                                                  for k, d in parts.items()},
+            "x2_recipe_step": steps}
+
+
 def run() -> dict:
     import torch
 
@@ -3036,6 +3263,10 @@ def run() -> dict:
     # before each counted run and read just after)
     scale_launches = scales_phase(dev, work)
 
+    # 32. MedCLIP's Swin window attention: the kernels at the stage shapes,
+    # MedCLIP's parts and the x2 recipe step, kernels against plain
+    swin_row = swin_attn_phase(dev)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -3127,7 +3358,8 @@ def run() -> dict:
          "replaces": pallas + "halo_attn_packed.py:338",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
-         **add_bounds(*(v[4] for v in k4.values())), "library_ms": k4_plain_ms}]}
+         **add_bounds(*(v[4] for v in k4.values())), "library_ms": k4_plain_ms},
+        swin_row]}
 
 
 def main() -> int:

@@ -18,15 +18,17 @@ released key layout, ``swin_to_torch`` writes it.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 from typing import Any, Dict, List, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
 from m2trans_tpu_torch.models.medclip import ParamTree, layer_norm, normal_
-from m2trans_tpu_torch.ops import on_device
+from m2trans_tpu_torch.ops.kernels.swin_attn import (
+    relative_position_index as _relative_position_index,
+    shift_attn_mask as _shift_attn_mask,  # noqa: F401 (SW-MSA's mask, by its old name)
+    window_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,90 +48,14 @@ class SwinConfig:
         return self.embed_dim * 2 ** (len(self.depths) - 1)
 
 
-@lru_cache(maxsize=8)
-def _relative_position_index(window: int) -> np.ndarray:
-    """(window^2, window^2) indices into the (2w-1)^2 bias table (the
-    standard Swin construction)."""
-    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window),
-                                  indexing="ij"))  # 2, w, w
-    flat = coords.reshape(2, -1)
-    rel = flat[:, :, None] - flat[:, None, :]  # 2, w^2, w^2
-    rel = rel.transpose(1, 2, 0).astype(np.int64)
-    rel[:, :, 0] += window - 1
-    rel[:, :, 1] += window - 1
-    rel[:, :, 0] *= 2 * window - 1
-    return rel.sum(-1)
-
-
-@lru_cache(maxsize=32)
-def _shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
-    """(num_windows, w^2, w^2) additive mask (-100 off-region) for SW-MSA."""
-    img = np.zeros((h, w), np.int32)
-    cnt = 0
-    for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
-        for ws in (slice(0, -window), slice(-window, -shift),
-                   slice(-shift, None)):
-            img[hs, ws] = cnt
-            cnt += 1
-    img = img.reshape(h // window, window, w // window, window)
-    img = img.transpose(0, 2, 1, 3).reshape(-1, window * window)
-    diff = img[:, :, None] != img[:, None, :]
-    return np.where(diff, -100.0, 0.0).astype(np.float32)
-
-
-def _window_partition(x, window):
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // window, window, w // window, window, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, window * window, c)
-
-
-def _window_reverse(x, window, h, w):
-    b = x.shape[0] // ((h // window) * (w // window))
-    c = x.shape[-1]
-    x = x.reshape(b, h // window, w // window, window, window, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
-
-
 def _attention(p, x, heads, window, shift, h, w):
-    """Windowed (optionally shifted) MHA over (B, H, W, C)."""
-    c = x.shape[-1]
-    hd = c // heads
-    if shift:
-        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-    xw = _window_partition(x, window)  # (B*nW, w^2, C)
-    n = window * window
-
-    def proj(name):
-        return xw @ p[f"{name}_w"] + p[f"{name}_b"]
-
-    def split_heads(t):
-        return t.reshape(-1, n, heads, hd).transpose(1, 2)
-
-    q = split_heads(proj("q")) * (hd ** -0.5)
-    k = split_heads(proj("k"))
-    v = split_heads(proj("v"))
-    attn = q.float() @ k.float().transpose(-1, -2)  # logits in f32
-
-    rpi = on_device(_relative_position_index, window, device=x.device)
-    bias = p["rpb_table"][rpi.reshape(-1)]
-    bias = bias.reshape(n, n, heads).permute(2, 0, 1)  # (heads, n, n)
-    attn = attn + bias[None].float()
-
-    if shift:
-        mask = on_device(_shift_attn_mask, h, w, window, shift, device=x.device)
-        nw = mask.shape[0]
-        attn = attn.reshape(-1, nw, heads, n, n) + mask[None, :, None]
-        attn = attn.reshape(-1, heads, n, n)
-
-    attn = torch.softmax(attn, dim=-1).to(v.dtype)
-    out = (attn @ v).transpose(1, 2).reshape(-1, n, c)
-    out = out @ p["o_w"] + p["o_b"]
-    out = _window_reverse(out, window, h, w)
-    if shift:
-        out = torch.roll(out, (shift, shift), dims=(1, 2))
-    return out
+    """Windowed (optionally shifted) MHA over the (B, H, W, C) map x of
+    h x w: the q, k, v projections on the image layout, the attention core
+    (roll, windows, bias, mask, softmax, P V and back; one kernel each way
+    on the card, ``ops/kernels/swin_attn.py``), the o-projection."""
+    q, k, v = (x @ p[f"{name}_w"] + p[f"{name}_b"] for name in ("q", "k", "v"))
+    out = window_attention(q, k, v, p["rpb_table"], heads, window, shift)
+    return out @ p["o_w"] + p["o_b"]
 
 
 def _mlp(p, x):

@@ -81,6 +81,13 @@ SIGNATURES = {
     "m2t_ff_conv_smem": [I],
     "m2t_relayout": [P, P, I, I, I, I, I, I, I, P],  # src dst B H W g nb cb pack stream
     "m2t_mark": [I, P],                            # which stream
+    "m2t_swin_attn": [P, P, P, P, P,               # q k v table out
+                      I, I, I, I, I, I,            # B H W C heads shift
+                      F, I, P],                    # scale is_bf16 stream
+    "m2t_swin_attn_bwd": [P, P, P, P, P,           # q k v table gout
+                          P, P, P,                 # dq dk dv
+                          I, I, I, I, I, I,        # B H W C heads shift
+                          F, I, P],                # scale is_bf16 stream
 }
 
 _lock = threading.Lock()

@@ -39,11 +39,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(bytes_moved: float, flops: float) -> dict:
+def bound(bytes_moved: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the bf16 tensor-core peak."""
+    memory rate and the operations over ``flop_per_s`` (the bf16
+    tensor-core peak; the f32 rate for a kernel whose products are f32
+    FMAs)."""
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOP_PER_S * 1e3
+    t_f = flops / flop_per_s * 1e3
     return {"bound_ms": max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations"}
 
@@ -53,6 +55,17 @@ def add_bounds(*bs) -> dict:
     of the largest share."""
     top = max(bs, key=lambda b: b["bound_ms"])
     return {"bound_ms": sum(b["bound_ms"] for b in bs), "bound_by": top["bound_by"]}
+
+
+def swin_attn_flops(x, heads: int, window: int = 7, backward: bool = False) -> float:
+    """Operations of MedCLIP's window attention on the (B, H, W, C) map x:
+    Q K^T and P V, 2 n^2 hd each per window and head (n = window^2); the
+    backward recomputes Q K^T and forms dP, dV, dK and dQ, five such
+    products."""
+    b, h, w, c = x.shape
+    n = window * window
+    per = 2 * n * n * (c // heads) * (5 if backward else 2)
+    return float(per * b * (h // window) * (w // window) * heads)
 
 
 def branch_flops(x, levels: int) -> float:

@@ -1231,3 +1231,156 @@ def test_release_bin_through_make_semantic_loss_on_card(dev, tmp_path):
     want.backward()
     assert float(got.detach()) == pytest.approx(float(want.detach()), rel=1e-4)
     assert torch.allclose(got_sr.grad.cpu(), want_sr.grad, rtol=1e-3, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# MedCLIP's Swin window attention (csrc/swin_attn.cu)
+# ---------------------------------------------------------------------------
+
+# (batch, map side, channels, heads, shift): Swin-tiny's four stages at the
+# recipe's 6 patches (hd 32; SW-MSA in stages 1-3, the window covers stage
+# 4's map), an unshifted stage-1 block, and MedCLIPConfig.tiny()'s two
+# stages (hd 8)
+SWIN_SHAPES = [(6, 56, 96, 3, 3), (6, 56, 96, 3, 0), (6, 28, 192, 6, 3),
+               (6, 14, 384, 12, 3), (6, 7, 768, 24, 0), (2, 14, 16, 2, 3),
+               (2, 7, 32, 4, 0), (1, 14, 64, 4, 3)]
+# kernel vs plain: max|a - b| <= max(atol, rtol * max|b|); f32 sums in
+# another order than cuBLAS, bf16 may round P or a product one ulp apart at
+# a tie (the K1b bound)
+SWIN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 2e-2)}
+
+
+def _swin_case(dev, shape, dtype, seed=0):
+    b, hw, c, heads, shift = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, gout = (_randn(rng, (b, hw, hw, c), dtype=dtype).to(dev) for _ in range(4))
+    table = _randn(rng, (169, heads), dtype=dtype).to(dev)
+    return q, k, v, table, gout, heads, shift
+
+
+def _swin_run(fn, case):
+    q, k, v, table, gout, heads, shift = case
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ins, table, heads, 7, shift)
+    return [out.detach(), *torch.autograd.grad(out, ins, gout)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SWIN_SHAPES)
+def test_swin_attn_matches_plain(dev, shape, dtype):
+    """The kernels' output, dq, dk and dv against the plain version's, and
+    a second run bit for bit."""
+    from m2trans_tpu_torch.ops.kernels.swin_attn import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    case = _swin_case(dev, shape, dtype)
+    n0 = window_attention.launches
+    got = _swin_run(window_attention, case)
+    torch.cuda.synchronize()
+    assert window_attention.launches == n0 + 2
+    again = _swin_run(window_attention, case)
+    want = _swin_run(window_attention_plain, case)
+    atol, rtol = SWIN_TOL[dtype]
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert torch.equal(a, c), f"{name}: two runs differ"
+        err, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        assert err <= max(atol, rtol * top), f"{name}: max err {err:.3g}, max {top:.3g}"
+
+
+@pytest.mark.cuda
+def test_swin_attn_raises_on_what_it_does_not_take(dev):
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention
+
+    q, k, v, table, _, _, _ = _swin_case(dev, (1, 14, 48, 2, 3), torch.float32)
+    with pytest.raises(ValueError, match="head dim"):  # hd 24
+        window_attention(q, k, v, table, 2, 7, 3)
+    q, k, v, table, _, heads, _ = _swin_case(dev, (1, 14, 64, 2, 3), torch.float32)
+    with pytest.raises(ValueError, match="multiples of the window"):
+        window_attention(q[:, :12], k[:, :12], v[:, :12], table, heads, 7, 3)
+
+
+@pytest.mark.cuda
+def test_swin_attn_in_a_cuda_graph_equals_eager(dev):
+    """Forward and backward captured in a CUDA graph replay the eager bits;
+    the capture counts 2 launches and a replay none."""
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention
+
+    case = _swin_case(dev, (6, 28, 192, 6, 3), torch.float32, seed=1)
+    eager = _swin_run(window_attention, case)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _swin_run(window_attention, case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = window_attention.launches
+    with torch.cuda.graph(graph):
+        static = _swin_run(window_attention, case)
+    assert window_attention.launches == n0 + 2
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert window_attention.launches == n0 + 2
+    for a, b in zip(static, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_swin_attn_launches_in_a_recipe_capture(dev):
+    """The recipe step's MedCLIP (tiny: 2 Swin blocks) launches 2 x 3
+    kernels a step (HR forward, SR forward, SR backward): 6 eagerly, 6 more
+    for the side-stream step and 6 for the capture, none in a replay."""
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention
+
+    case = _step_case(dev, "recipe")
+    n0 = window_attention.launches
+    _train(dev, case, graphs=False, n=1)
+    n1 = window_attention.launches
+    _train(dev, case, graphs=True, n=3)
+    assert (n1 - n0, window_attention.launches - n1) == (6, 12)
+
+
+@pytest.mark.cuda
+def test_semantic_loss_gradient_through_the_swin_kernels(dev, monkeypatch):
+    """d(semantic loss)/d sr through MedCLIP at its published width (f32,
+    seeded weights, 3 patches of 224 from 2 x 384x384) with the kernels
+    against the same with the plain attention: the loss rtol 2e-5, the
+    gradient rtol 1e-4 (the staged loss's d/d sr test against JAX)."""
+    from m2trans_tpu_torch.losses.semantic import (
+        clip_image_sims,
+        clip_text_embed,
+        crop_offsets,
+        semantic_loss_staged,
+    )
+    from m2trans_tpu_torch.models.medclip import swin
+    from m2trans_tpu_torch.models.medclip.model import MedCLIPConfig, init_medclip
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
+
+    mcfg = MedCLIPConfig()
+    model = init_medclip(mcfg, seed=4, device=dev)
+    rng = np.random.default_rng(5)
+    sr, hr = (torch.from_numpy(rng.uniform(0, 1, (2, 384, 384, 3)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    ids = torch.from_numpy(rng.integers(5, mcfg.text.vocab_size, (2, 16))).to(dev)
+    mask = torch.ones_like(ids)
+    offsets = crop_offsets(rng, 2, 384, 384, 2, 224)
+    with torch.no_grad():
+        t = clip_text_embed(model, ids, mask)
+        sim_y = clip_image_sims(model, hr, offsets, t)
+
+    def loss_and_grad():
+        s = sr.clone().requires_grad_(True)
+        loss = semantic_loss_staged(model, s, offsets, t, sim_y)
+        (g,) = torch.autograd.grad(loss, [s])
+        return float(loss), g
+
+    got = loss_and_grad()
+    monkeypatch.setattr(swin, "window_attention", window_attention_plain)
+    want = loss_and_grad()
+    assert got[0] == pytest.approx(want[0], rel=2e-5)
+    assert float(want[1].abs().max()) > 0
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
