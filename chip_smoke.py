@@ -69,7 +69,11 @@ whose HR sides are no multiple of the scale; then (phase 32) MedCLIP's
 Swin window attention (``csrc/swin_attn.cu``) against its plain version at
 Swin-tiny's stage shapes, its device times beside its bound, the plain
 version's and masked ``scaled_dot_product_attention``'s, MedCLIP's parts
-and the x2 recipe step with the kernels and with the plain attention. The
+and the x2 recipe step with the kernels and with the plain attention; then
+(phase 33) HAT x4's attention kernels (``csrc/hat_attn.cu``) against their
+plain versions at a request's shape, their device times beside their bound,
+HAT_SRx4 through the graphed serving forward (36 + 6 launches a capture,
+replay against eager) and the infer CLI on a seeded ``.pth``. The
 CLIs and Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -2544,6 +2548,135 @@ def swin_attn_phase(dev) -> dict:
             "x2_recipe_step": steps}
 
 
+HAT_BATCH = 8  # phase 33: the hat-x4-serve-b8 request, 8 x 96^2
+HAT_TOL = (2e-3, 2e-2)
+
+
+def hat_phase(dev) -> list:
+    """Phase 33, HAT x4 (``models/hat.py``) and its attention kernels
+    (``csrc/hat_attn.cu``). At a request's shape (8 x 96^2, 180 channels, 6
+    heads, window 16, q, k, v views of one qkv tensor, seeded): SW-MSA at
+    shift 0 and 8 and OCA against their plain versions in bf16 (a second run
+    bit for bit), device ms (profiler) of each kernel beside its bound
+    (each operand once; bytes at 3.35 TB/s or bf16 products at 989 TFLOP/s,
+    the larger) and the plain version's, and MedCLIP's window-7 kernel count
+    left alone by window 16. Then HAT_SRx4 at its published widths (seeded
+    init) through ``GraphedForward``: 36 + 6 launches a capture, replay =
+    eager bit for bit, against the plain bf16 forward, device ms of a
+    replay; and the infer CLI on a seeded release-layout ``.pth``. Returns
+    the kernel report's two rows."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.graphed import GraphedForward, serving_forward
+    from m2trans_tpu_torch.models.hat import hat_apply, init_hat, release_state_dict
+    from m2trans_tpu_torch.models.m2trans import ComputePolicy
+    from m2trans_tpu_torch.ops.kernels import hat_attn
+    from m2trans_tpu_torch.ops.kernels.swin_attn import (
+        window_attention,
+        window_attention_plain,
+    )
+    from m2trans_tpu_torch.utils.roofline import bound, nbytes
+
+    t0 = time.perf_counter()
+    c, heads, side = 180, 6, 96
+    g = torch.Generator().manual_seed(33)
+    qkv = torch.randn(HAT_BATCH, side, side, 3 * c, generator=g).bfloat16().to(dev)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    tables = {"sa": (torch.randn(961, heads, generator=g) * 0.5).to(dev),
+              "oca": (torch.randn(1521, heads, generator=g) * 0.5).to(dev)}
+
+    def attend(kind, plain=False):
+        with torch.no_grad():
+            if kind == "oca":
+                fn = hat_attn.overlap_attention_plain if plain else hat_attn.overlap_attention
+                return fn(q, k, v, tables["oca"], heads, 16, 24)
+            fn = window_attention_plain if plain else window_attention
+            return fn(q, k, v, tables["sa"], heads, 16, kind)
+
+    rows, swin0 = {}, window_attention.launches
+    for kind in (0, 8, "oca"):
+        got, again, want = attend(kind), attend(kind), attend(kind, plain=True)
+        need(torch.equal(got, again), f"phase 33 {kind}: two runs of the kernel differ")
+        err, top = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+        need(err <= max(HAT_TOL[0], HAT_TOL[1] * top),
+             f"phase 33 {kind}: kernel vs plain max err {err:.3g} (max {top:.3g})")
+        keys = 576 if kind == "oca" else 256
+        b = bound(nbytes(q, k, v, tables["oca" if kind == "oca" else "sa"], got),
+                  4.0 * q.numel() * keys)
+        rows[kind] = {"max_rel_err": err / top, **b,
+                      "device_ms": device_ms(lambda: attend(kind)),
+                      "plain_ms": device_ms(lambda: attend(kind, plain=True))}
+        print(f"## phase 33 {'OCA' if kind == 'oca' else f'SW-MSA shift {kind}'}: max err "
+              f"{err:.3g} (max {top:.3g}); device {fmt_ms(rows[kind]['device_ms'])} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), plain "
+              f"{fmt_ms(rows[kind]['plain_ms'])} ms ##")
+    need(window_attention.launches == swin0, "phase 33: window 16 moved MedCLIP's kernel count")
+
+    # HAT_SRx4 at its published widths through the graphed serving forward
+    cfg = load_config(os.path.join(ROOT, "m2trans_tpu_torch", "configs", "HAT_SRx4.yml"))
+    model = init_hat(cfg, seed=1, device=dev)
+    policy = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(HAT_BATCH, side, side, 3, generator=g).to(dev)
+    gf = GraphedForward(model, cfg, policy)
+    got = gf(x).clone()
+    launches = gf.capture_launches[tuple(x.shape)]
+    need(launches == {"hat_wattn": 36, "hat_oca": 6}, f"phase 33: a capture counted {launches}")
+    with torch.inference_mode():
+        want = serving_forward(model, x, cfg, policy, False)
+        plain = hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
+    need(torch.equal(got, want), f"phase 33: replay vs eager max {errs(got, want)[0]}")
+    vs_plain = float((got - plain).abs().mean())
+    need(vs_plain < 2e-3, f"phase 33: kernels vs plain bf16 forward mean {vs_plain:.3g}")
+    fwd_ms = device_ms(lambda: gf(x))
+    plain_fwd_ms = device_ms(lambda: hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16,
+                                                                             False)))
+    print(f"## phase 33 HAT_SRx4 8x96^2: capture {launches}; replay = eager; vs plain bf16 "
+          f"mean {vs_plain:.3g}; device ms replay {fmt_ms(fwd_ms)}, plain attention "
+          f"{fmt_ms(plain_fwd_ms)} ##")
+
+    # the infer CLI on a seeded release-layout .pth
+    work = os.path.join(ROOT, "build", "chip_smoke", "hat")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "frames"))
+    torch.save({"params_ema": release_state_dict(model)}, os.path.join(work, "HAT_SRx4.pth"))
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (60, 75, 3), dtype=np.uint8)).save(
+            os.path.join(work, "frames", f"{i}.png"))
+    res = subprocess.run(
+        [sys.executable, "-m", "m2trans_tpu_torch.infer", "--config",
+         os.path.join(ROOT, "m2trans_tpu_torch", "configs", "HAT_SRx4.yml"), "--model_path",
+         os.path.join(work, "HAT_SRx4.pth"), "--input", os.path.join(work, "frames"),
+         "--output", os.path.join(work, "out")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    need(res.returncode == 0, f"phase 33 infer CLI: {res.stderr[-4000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    need(report["cuda_graphs"]["launches_per_capture"] == {
+        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6}}, f"phase 33 infer CLI: {report}")
+    print(f"## phase 33 infer CLI: {json.dumps(report)}; phase 33 in "
+          f"{time.perf_counter() - t0:.1f} s ##")
+    csrc = "m2trans_tpu_torch/csrc/hat_attn.cu"
+    sw = {key: (None if None in (rows[0][key], rows[8][key]) else
+                18 * rows[0][key] + 18 * rows[8][key])
+          for key in ("bound_ms", "device_ms", "plain_ms")}
+    return [
+        {"name": "hat_wattn", "route": "cuda", "source": csrc, "replaces": None,
+         "launches_graph_capture": launches["hat_wattn"],
+         "max_rel_err": max(rows[0]["max_rel_err"], rows[8]["max_rel_err"]),
+         "bound_by": rows[0]["bound_by"], **sw, "library_ms": None,
+         "per_launch": {f"shift {kk}": rows[kk] for kk in (0, 8)},
+         "hat_forward_device_ms": fwd_ms, "hat_forward_plain_attention_device_ms": plain_fwd_ms},
+        {"name": "hat_oca", "route": "cuda", "source": csrc, "replaces": None,
+         "launches_graph_capture": launches["hat_oca"],
+         "max_rel_err": rows["oca"]["max_rel_err"], "bound_by": rows["oca"]["bound_by"],
+         **{key: None if rows["oca"][key] is None else 6 * rows["oca"][key]
+            for key in ("bound_ms", "device_ms", "plain_ms")},
+         "library_ms": None, "per_launch": rows["oca"]}]
+
+
 def run() -> dict:
     import torch
 
@@ -3267,6 +3400,10 @@ def run() -> dict:
     # MedCLIP's parts and the x2 recipe step, kernels against plain
     swin_row = swin_attn_phase(dev)
 
+    # 33. HAT x4: its attention kernels at a request's shape, the graphed
+    # serving forward at the published widths, the infer CLI
+    hat_rows = hat_phase(dev)
+
     need_no_reference_package()
 
     def per_cftm(t):  # one CFTM's 4 branch launches: L0, L1, L2, L2
@@ -3359,7 +3496,7 @@ def run() -> dict:
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          **add_bounds(*(v[4] for v in k4.values())), "library_ms": k4_plain_ms},
-        swin_row]}
+        swin_row, *hat_rows]}
 
 
 def main() -> int:

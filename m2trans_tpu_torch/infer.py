@@ -2,7 +2,10 @@
 
 Runs super-resolution over a directory of frames (a cine loop) or one
 image and prints one JSON report: throughput, p50/p90/p99 per-frame
-latency, the device, and the launches of the port's kernels.
+latency, the device, and the launches of the port's kernels. The yml's
+``model`` picks the network: M2Trans (``configs/``, a reference ``.pt``) or
+HAT (``m2trans_tpu_torch/configs/HAT_SRx4.yml``, a released ``.pth``; one
+device, no mesh).
 
 Usage:
   python -m m2trans_tpu_torch.infer --config configs/M2Trans_x4_test.yml \
@@ -40,7 +43,7 @@ import time
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="M2Trans inference (PyTorch port)")
+    ap = argparse.ArgumentParser(description="M2Trans / HAT inference (PyTorch port)")
     ap.add_argument("--config", type=str, required=True)
     ap.add_argument("--model_path", type=str, default=None)
     ap.add_argument("--input", type=str, required=True,
@@ -68,7 +71,7 @@ def main(argv=None) -> None:
     from PIL import Image
 
     from m2trans_tpu_torch.config import load_config
-    from m2trans_tpu_torch.models.graphed import COUNTED
+    from m2trans_tpu_torch.models.graphed import counted_kernels
     from m2trans_tpu_torch.models.m2trans import policy_from_config
     from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.parallel.spatial import auto_space_mesh_multi
@@ -99,7 +102,7 @@ def main(argv=None) -> None:
     mesh = None
     if args.mesh_space > 1:
         mesh = mesh_lib.space_mesh(args.mesh_space)
-    elif args.mesh_space == 0:
+    elif args.mesh_space == 0 and cfg.model != "HAT":  # HAT runs on one device
         # every distinct frame shape, so the count divides all padded heights
         shapes = sorted({(f.shape[1], f.shape[2]) for f in frames})
         mesh = auto_space_mesh_multi(shapes, cfg,
@@ -115,7 +118,8 @@ def main(argv=None) -> None:
     if args.output and writer:
         os.makedirs(args.output, exist_ok=True)
 
-    launches0 = {k: f.launches for k, f in COUNTED.items()}
+    counted = counted_kernels(model)
+    launches0 = {k: f.launches for k, f in counted.items()}
     counts0 = (graphed.captures, graphed.replays) if graphed else None
     t0 = time.perf_counter()
     n_px = 0
@@ -148,7 +152,7 @@ def main(argv=None) -> None:
                                      in graphed.capture_launches.items()}}
     else:
         report["kernel_launches"] = {k: f.launches - launches0[k]
-                                     for k, f in COUNTED.items()}
+                                     for k, f in counted.items()}
     if writer:
         print(json.dumps(report))
     if n_ranks > 1:

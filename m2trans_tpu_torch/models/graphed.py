@@ -4,9 +4,11 @@ counterpart of ``jax.jit`` in m2trans_tpu/parallel/streaming.py.
 The JAX package compiles the serving forward once per frame shape and then
 dispatches one executable a frame. Run eagerly, the port's forward is about
 250 launches from Python a frame, and on the card the host, not the device,
-bounds it. :class:`GraphedForward` captures
-:func:`~m2trans_tpu_torch.models.m2trans.m2trans_apply_microbatched` and the
-output cast (f32, or u8 as ``round(y * 255)`` in the forward's dtype) into
+bounds it. :class:`GraphedForward` captures the served model's forward
+(:func:`serving_forward`: M2Trans's
+:func:`~m2trans_tpu_torch.models.m2trans.m2trans_apply_microbatched`, or
+HAT's :func:`~m2trans_tpu_torch.models.hat.hat_apply`) and the output cast
+(f32, or u8 as ``round(y * 255)`` in the forward's dtype) into
 a ``torch.cuda.CUDAGraph`` the first time it sees an input shape, as
 ``jax.jit`` traces on a first call, and replays it after: one launch from
 the host a frame.
@@ -57,9 +59,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from m2trans_tpu_torch.config import Config
+from m2trans_tpu_torch.models.hat import HAT, hat_apply
 from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
-    M2Trans,
     cached_operands,
     m2trans_apply_microbatched,
     param_key,
@@ -67,11 +69,19 @@ from m2trans_tpu_torch.models.m2trans import (
 )
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
+from m2trans_tpu_torch.ops.kernels.hat_attn import overlap_attention, window_attention_16
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
 
-# the serving forward's kernel wrappers and their launch counters
+# the serving forward's kernel wrappers and their launch counters: M2Trans's,
+# and HAT's (36 SW-MSA + 6 OCA launches a forward at HAT_SRx4's depth)
 COUNTED = {"cftm_branch": cftm_branch, "ff_conv": ff_conv,
            "tail_band": tail_band_fused}
+HAT_COUNTED = {"hat_wattn": window_attention_16, "hat_oca": overlap_attention}
+
+
+def counted_kernels(model: torch.nn.Module) -> Dict[str, Callable]:
+    """The kernel wrappers the model's serving forward launches."""
+    return HAT_COUNTED if isinstance(model, HAT) else COUNTED
 
 
 def served(y: torch.Tensor, output_u8: bool) -> torch.Tensor:
@@ -84,10 +94,16 @@ def served(y: torch.Tensor, output_u8: bool) -> torch.Tensor:
     return y.float()
 
 
-def serving_forward(model: M2Trans, x: torch.Tensor, cfg: Config,
+def serving_forward(model: torch.nn.Module, x: torch.Tensor, cfg: Config,
                     policy: ComputePolicy, output_u8: bool) -> torch.Tensor:
     """The forward a server runs on one device: (B, H, W, colors) f32 in
-    [0, 1] -> (B, H*s, W*s, 3), :func:`served`."""
+    [0, 1] -> (B, H*s, W*s, 3), :func:`served`. M2Trans runs
+    :func:`~m2trans_tpu_torch.models.m2trans.m2trans_apply_microbatched`
+    (clamped to [0, 1]); HAT :func:`~m2trans_tpu_torch.models.hat.hat_apply`,
+    clamped to [0, 1] only for u8 (its forward is not clamped)."""
+    if isinstance(model, HAT):
+        y = hat_apply(model, x, cfg, policy)
+        return served(y.clamp(0.0, 1.0) if output_u8 else y, output_u8)
     return served(m2trans_apply_microbatched(model, x, cfg, policy), output_u8)
 
 
@@ -132,7 +148,7 @@ class GraphedForward:
     """:func:`serving_forward` replayed from a CUDA graph per input shape.
 
     Args:
-      model: the port's M2Trans, on its device.
+      model: the port's M2Trans or HAT, on its device.
       cfg: model Config.
       policy: numerics policy.
       output_u8: quantise the output to u8 on the device.
@@ -142,12 +158,12 @@ class GraphedForward:
     ``captures``, ``replays`` and ``eager_calls`` (shapes beyond
     ``max_graphs``) count what it did; ``refreshes`` the operand
     rewrites before a replay after a weight write; ``capture_launches``
-    holds, for each captured shape, the launches of the kernel wrappers
-    during the capture itself (the side-stream run before it excluded):
-    the kernels each replay runs.
+    holds, for each captured shape, the launches of the model's kernel
+    wrappers (:func:`counted_kernels`) during the capture itself (the
+    side-stream run before it excluded): the kernels each replay runs.
     """
 
-    def __init__(self, model: M2Trans, cfg: Config, policy: ComputePolicy, *,
+    def __init__(self, model: torch.nn.Module, cfg: Config, policy: ComputePolicy, *,
                  output_u8: bool = False, max_graphs: Optional[int] = None):
         self.model, self.cfg, self.policy = model, cfg, policy
         self.output_u8 = output_u8
@@ -159,6 +175,7 @@ class GraphedForward:
         self._weights = self._storage = None  # the keys the graphs stand on
         self.captures = self.replays = self.eager_calls = self.refreshes = 0
         self.capture_launches: Dict[Tuple[int, ...], Dict[str, int]] = {}
+        self.counted = counted_kernels(model)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return serving_forward(self.model, x, self.cfg, self.policy,
@@ -191,9 +208,9 @@ class GraphedForward:
         counts = []  # the wrappers' launches in each call of fn
 
         def fn():
-            before = {k: f.launches for k, f in COUNTED.items()}
+            before = {k: f.launches for k, f in self.counted.items()}
             out = self._forward(inp)
-            counts.append({k: f.launches - before[k] for k, f in COUNTED.items()})
+            counts.append({k: f.launches - before[k] for k, f in self.counted.items()})
             return out
 
         graph, out = capture(fn, self._pool)

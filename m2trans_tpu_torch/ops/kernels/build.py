@@ -88,6 +88,10 @@ SIGNATURES = {
                           P, P, P,                 # dq dk dv
                           I, I, I, I, I, I,        # B H W C heads shift
                           F, I, P],                # scale is_bf16 stream
+    "m2t_hat_wattn": [P, P, P, LL, P, P,          # q k v pixel-stride table out
+                      I, I, I, I, I, I, F, P],     # B H W C heads shift scale stream
+    "m2t_hat_oca": [P, P, P, LL, P, P,            # q k v pixel-stride table out
+                    I, I, I, I, I, F, P],          # B H W C heads scale stream
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 """Streaming cine-loop super-resolution; port of
 m2trans_tpu/parallel/streaming.py.
 
-Frames go through :func:`m2trans_apply_microbatched` on the model's
-device or, with a ``mesh``, through
+Frames go through the model's serving forward
+(``models/graphed.py::serving_forward``: M2Trans or HAT) on the model's
+device or, for M2Trans with a ``mesh``, through
 :func:`~m2trans_tpu_torch.parallel.spatial.spatial_sharded_forward` over
 its ranks: every rank of the mesh runs the same stream and takes part in
 every frame, and each gets the whole SR frame. A rank outside the mesh
@@ -57,7 +58,8 @@ import torch
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.graphed import GraphedForward, served, serving_forward
-from m2trans_tpu_torch.models.m2trans import ComputePolicy, M2Trans
+from m2trans_tpu_torch.models.hat import HAT
+from m2trans_tpu_torch.models.m2trans import ComputePolicy
 from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
 from m2trans_tpu_torch.utils.spans import STREAM_COPY_OUT, STREAM_SUBMIT, STREAM_WAIT, span
@@ -67,7 +69,7 @@ class StreamingSR:
     """Fixed-model streaming super-resolution runner.
 
     Args:
-      model: the port's M2Trans, already on its device.
+      model: the port's M2Trans or HAT, already on its device.
       cfg: model Config.
       mesh: optional :class:`~m2trans_tpu_torch.parallel.mesh.SpaceMesh`
         whose ranks shard every frame by rows (a rank outside it runs the
@@ -84,12 +86,15 @@ class StreamingSR:
     def default_policy() -> ComputePolicy:
         return ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
 
-    def __init__(self, model: M2Trans, cfg: Config, *, mesh=None,
+    def __init__(self, model: torch.nn.Module, cfg: Config, *, mesh=None,
                  policy: Optional[ComputePolicy] = None, depth: int = 2,
                  output_u8: bool = False, graphs: bool = True):
         if mesh is not None and not isinstance(mesh, SpaceMesh):
             raise TypeError(f"StreamingSR: mesh must be a SpaceMesh "
                             f"(parallel.mesh.space_mesh), got {type(mesh).__name__}")
+        if mesh is not None and isinstance(model, HAT):
+            raise ValueError("StreamingSR: HAT runs on one device; sharding its windows "
+                             "over rows is not supported (serve it without a mesh)")
         self.model = model
         self.mesh = mesh
         self.cfg = cfg

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from m2trans_tpu_torch.config import Config
+from m2trans_tpu_torch.models.hat import HAT, load_hat_state_dict, release_params
 from m2trans_tpu_torch.models.m2trans import M2Trans
 from m2trans_tpu_torch.train.convert import (
     load_reference_state_dict,
@@ -31,11 +32,19 @@ from m2trans_tpu_torch.train.convert import (
 
 
 def load_params_any(path: Optional[str], cfg: Config,
-                    device: Optional[torch.device] = None) -> M2Trans:
+                    device: Optional[torch.device] = None) -> torch.nn.Module:
     """A model from a reference ``.pt``: the full training dict
-    (``{'model_state_dict': ...}``) or a bare state dict."""
+    (``{'model_state_dict': ...}``) or a bare state dict. With ``model:
+    HAT`` a HAT from a released ``.pth`` (``params_ema``, else ``params``,
+    else a bare state dict)."""
     if path is None:
         raise ValueError("model_path is not set")
+    if cfg.model == "HAT":
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.device("meta"):
+            model = HAT(cfg)
+        return load_hat_state_dict(model.to_empty(device=device or "cpu"),
+                                   release_params(ckpt))
     if os.path.isdir(path) or not path.endswith(".pt"):
         raise NotImplementedError(
             f"{path}: the torch port reads reference .pt checkpoints only; it "

@@ -1384,3 +1384,165 @@ def test_semantic_loss_gradient_through_the_swin_kernels(dev, monkeypatch):
     assert got[0] == pytest.approx(want[0], rel=2e-5)
     assert float(want[1].abs().max()) > 0
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# HAT's attention kernels (csrc/hat_attn.cu) and HAT's served forward
+# ---------------------------------------------------------------------------
+
+# kernel vs plain, bf16: max|a - b| <= max(2e-3, 2e-2 * max|b|) (the Swin
+# kernels' bf16 bound: the kernel rounds the unnormalised P to bf16 and
+# divides by the f32 row sum once, the plain version rounds the normalised P
+# and the product; both round the output to bf16), and the mean |a - b| under
+# 2e-3 of max|b| (a wrong bias row or mask shifts every output of a window)
+HAT_TOL = (2e-3, 2e-2, 2e-3)
+# (batch, H, W, kind): the published block at 96^2, shift 0 and 8, OCA;
+# a map of other sides (64 x 112, windows of two rows of seven)
+HAT_CASES = [(2, 96, 96, 0), (2, 96, 96, 8), (2, 96, 96, "oca"), (1, 64, 112, 8),
+             (1, 64, 112, "oca")]
+
+
+def _hat_case(dev, b, h, w, seed=0, c=180, heads=6):
+    """q, k, v as views of one (B, H, W, 3C) bf16 qkv tensor, a bias table
+    of each kind (f32)."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, h, w, 3 * c, generator=g).bfloat16().to(dev)
+    tables = {k: (torch.randn(n, heads, generator=g) * 0.5).to(dev)
+              for k, n in (("sa", 31 * 31), ("oca", 39 * 39))}
+    return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], tables, heads
+
+
+def _hat_attend(kind, q, k, v, tables, heads, plain=False):
+    from m2trans_tpu_torch.ops.kernels import hat_attn
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention, window_attention_plain
+
+    if kind == "oca":
+        fn = hat_attn.overlap_attention_plain if plain else hat_attn.overlap_attention
+        return fn(q, k, v, tables["oca"], heads, 16, 24)
+    fn = window_attention_plain if plain else window_attention
+    return fn(q, k, v, tables["sa"], heads, 16, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAT_CASES)
+def test_hat_attn_matches_plain(dev, case):
+    """Each kernel against its plain version in bf16 on views of one qkv
+    tensor, a second run bit for bit; window 16 leaves MedCLIP's window-7
+    kernel's count alone."""
+    from m2trans_tpu_torch.ops.kernels import hat_attn
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention
+
+    b, h, w, kind = case
+    q, k, v, tables, heads = _hat_case(dev, b, h, w)
+    counter = hat_attn.overlap_attention if kind == "oca" else hat_attn.window_attention_16
+    n0, swin0 = counter.launches, window_attention.launches
+    with torch.no_grad():
+        got = _hat_attend(kind, q, k, v, tables, heads)
+        torch.cuda.synchronize()
+        again = _hat_attend(kind, q, k, v, tables, heads)
+        want = _hat_attend(kind, q, k, v, tables, heads, plain=True)
+    assert counter.launches == n0 + 2 and window_attention.launches == swin0
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (b, h, w, 180)
+    assert torch.equal(got, again)
+    d = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    assert float(d.max()) <= max(HAT_TOL[0], HAT_TOL[1] * top), float(d.max())
+    assert float(d.mean()) <= HAT_TOL[2] * top, float(d.mean())
+
+
+@pytest.mark.cuda
+def test_hat_attn_contiguous_operands_and_what_it_refuses(dev):
+    """Contiguous q, k, v (pixel stride C) give the views' bits; f32, odd or
+    too wide heads, sides off the window and operands that want a gradient
+    raise."""
+    from m2trans_tpu_torch.ops.kernels import hat_attn
+
+    q, k, v, tables, heads = _hat_case(dev, 1, 32, 48, seed=3)
+    with torch.no_grad():
+        for kind in (8, "oca"):
+            a = _hat_attend(kind, q, k, v, tables, heads)
+            b = _hat_attend(kind, q.contiguous(), k.contiguous(), v.contiguous(), tables, heads)
+            assert torch.equal(a, b)
+    sa = tables["sa"]
+    with pytest.raises(ValueError, match="bf16"):
+        hat_attn.window_attention_16(q.float(), k.float(), v.float(), sa, heads, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        hat_attn.window_attention_16(q, k, v, torch.zeros(961, 4, device=dev), 4, 0)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        hat_attn.window_attention_16(q[:, :24], k[:, :24], v[:, :24], sa, heads, 0)
+    with pytest.raises(ValueError, match="forward only"):
+        hat_attn.overlap_attention(q.detach().requires_grad_(True), k, v, tables["oca"], heads)
+
+
+def _hat_cfg(**kw):
+    import os
+
+    from m2trans_tpu_torch.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(os.path.join(root, "m2trans_tpu_torch", "configs", "HAT_SRx4.yml"),
+                       overrides=kw or None)
+
+
+@pytest.mark.cuda
+def test_hat_graphed_forward_launches_and_bits(dev):
+    """HAT_SRx4 at its published widths (seeded init): the serving forward
+    replayed from a CUDA graph equals the eager forward bit for bit, its
+    capture counts 36 SW-MSA and 6 OCA launches, and it stays near the plain
+    bf16 forward (the attentions' plain versions, by name)."""
+    from m2trans_tpu_torch.models.hat import hat_apply, init_hat
+
+    cfg = _hat_cfg()
+    model = init_hat(cfg, seed=1, device=dev)
+    policy = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(2, 64, 80, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    gf = GraphedForward(model, cfg, policy)
+    got = gf(x).clone()
+    assert gf.capture_launches[tuple(x.shape)] == {"hat_wattn": 36, "hat_oca": 6}
+    with torch.inference_mode():
+        want = serving_forward(model, x, cfg, policy, False)
+        plain = hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
+    assert got.shape == (2, 256, 320, 3) and torch.equal(got, want)
+    assert torch.equal(gf(x), want)
+    assert float((got - plain).abs().mean()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_hat_infer_cli_on_a_release_pth(dev, tmp_path):
+    """``python -m m2trans_tpu_torch.infer`` with the HAT yml and a seeded
+    ``.pth`` in the release layout: graphs with 36 + 6 launches a capture,
+    PNGs of 4x frames that are no multiple of the window, and nothing of
+    jax or the JAX package loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from m2trans_tpu_torch.models.hat import init_hat, release_state_dict
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.save({"params_ema": release_state_dict(init_hat(_hat_cfg(), seed=5))},
+               tmp_path / "HAT_SRx4.pth")
+    src = tmp_path / "frames"
+    src.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (60, 75, 3), dtype=np.uint8)).save(src / f"{i}.png")
+    argv = ["infer", "--config", os.path.join(root, "m2trans_tpu_torch", "configs",
+                                              "HAT_SRx4.yml"),
+            "--model_path", str(tmp_path / "HAT_SRx4.pth"), "--input", str(src),
+            "--output", str(tmp_path / "out")]
+    code = ("import runpy, sys; sys.argv = %r; runpy.run_module('m2trans_tpu_torch.infer', "
+            "run_name='__main__'); bad = sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'm2trans_tpu'}); print('LOADED ' + ','.join(bad))" % argv)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1].strip() == "LOADED"
+    report = json.loads(lines[-2])
+    assert report["cuda_graphs"]["launches_per_capture"] == {
+        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6}}
+    assert report["cuda_graphs"]["replays"] == 3
+    assert sorted(os.listdir(tmp_path / "out")) == ["0.png", "1.png", "2.png"]
+    assert np.asarray(Image.open(tmp_path / "out" / "0.png")).shape == (240, 300, 3)
