@@ -121,6 +121,7 @@ def main(argv=None) -> None:
     counted = counted_kernels(model)
     launches0 = {k: f.launches for k, f in counted.items()}
     counts0 = (graphed.captures, graphed.replays) if graphed else None
+    results0 = (runner.handed_out, runner.copied_out)
     t0 = time.perf_counter()
     n_px = 0
     for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
@@ -144,6 +145,10 @@ def main(argv=None) -> None:
         "ranks": n_ranks,
         "backend": mesh_lib.backend(),
     }
+    # CUDA: frames handed out in the pinned buffer lent for them, and frames
+    # copied out of a slot's buffer (past the pool's limit)
+    report["handed_out"] = runner.handed_out - results0[0]
+    report["copied_out"] = runner.copied_out - results0[1]
     if graphed:
         report["cuda_graphs"] = {
             "captures": graphed.captures - counts0[0],

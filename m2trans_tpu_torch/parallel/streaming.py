@@ -43,14 +43,17 @@ In a profiler trace each request shows as three host spans
 (``utils/spans.py``), each with the request's sequence number in the stream
 as its ``args``: ``m2t::stream.submit`` (all of the enqueue),
 ``m2t::stream.wait`` (the host waiting on the request's event) and
-``m2t::stream.copy_out`` (the result copied out of the slot's pinned
-buffer; on the CPU, handed out).
+``m2t::stream.copy_out`` (the result handed out; on a CUDA model it holds
+``m2t::stream.handoff`` where the frame goes out in its lent buffer, and
+the copy where it is copied out of the slot's buffer).
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import time
+import weakref
 from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -62,7 +65,91 @@ from m2trans_tpu_torch.models.hat import HAT
 from m2trans_tpu_torch.models.m2trans import ComputePolicy
 from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
-from m2trans_tpu_torch.utils.spans import STREAM_COPY_OUT, STREAM_SUBMIT, STREAM_WAIT, span
+from m2trans_tpu_torch.utils.spans import (
+    STREAM_COPY_OUT,
+    STREAM_HANDOFF,
+    STREAM_SUBMIT,
+    STREAM_WAIT,
+    span,
+)
+
+# The most bytes of result buffers a runner's pool holds, lent or free:
+# 42 frames of 2048^2 f32, 151 requests of 8 x 384^2 f32.
+HANDOFF_LIMIT_BYTES = 2 << 30
+
+
+def _pinned_empty(shape, dtype):
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+class ResultPool:
+    """Host buffers that results are handed out in, each lent for one result.
+
+    :meth:`lend` gives a tensor on a buffer made by ``alloc`` (pinned
+    memory on a CUDA model) or kept from an earlier result of the same shape
+    and dtype. The buffer comes back when that tensor and everything made
+    from it (its ``.numpy()`` array, that array's views, tensors on them)
+    are gone; a buffer lent out is never lent again before. The pool holds
+    at most :data:`HANDOFF_LIMIT_BYTES` of buffers, lent or free; to make a
+    new one it first lets go of free buffers of other shapes, and where that
+    is not enough it lends nothing.
+    """
+
+    def __init__(self, alloc=_pinned_empty):
+        self._alloc = alloc
+        self._free = {}  # (shape, dtype) -> buffers not lent
+        # buffers given back; filed by the pool's own calls, since the
+        # consumer may drop the last view on any thread
+        self._back = collections.deque()
+        self._held = 0  # bytes of the buffers kept, lent or free
+        self._lent = 0  # bytes of the buffers lent out
+        self.made = 0  # buffers allocated
+
+    @staticmethod
+    def is_lent(t: torch.Tensor) -> bool:
+        """Whether :meth:`lend` gave out ``t``."""
+        return getattr(t, "_m2t_lent", False)
+
+    @property
+    def lent_bytes(self) -> int:
+        self._file_returns()
+        return self._lent
+
+    def _file_returns(self) -> None:
+        while self._back:
+            key, buf = self._back.popleft()
+            self._free.setdefault(key, []).append(buf)
+            self._lent -= buf.nbytes
+
+    def lend(self, shape, dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """A buffer of ``shape`` and ``dtype`` for one result, or None when
+        the bytes lent out would pass :data:`HANDOFF_LIMIT_BYTES`."""
+        self._file_returns()
+        key = (tuple(shape), dtype)
+        nbytes = math.prod(shape) * dtype.itemsize
+        free = self._free.get(key)
+        if free:
+            buf = free.pop()
+        else:
+            for other in self._free.values():
+                while other and self._held + nbytes > HANDOFF_LIMIT_BYTES:
+                    self._held -= other.pop().nbytes
+            if self._held + nbytes > HANDOFF_LIMIT_BYTES:
+                return None
+            buf = self._alloc(shape, dtype)
+            self._held += nbytes
+            self.made += 1
+        self._lent += nbytes
+        # The buffer comes back when `anchor` dies: its views have it as
+        # their base, and every tensor on it (the one returned, its
+        # ``.numpy()``, ``torch.from_numpy`` of a view) holds it from its
+        # storage. The returned tensor cannot be the anchor: its ``.numpy()``
+        # is based on a new alias of it.
+        anchor = buf.numpy()
+        weakref.finalize(anchor, self._back.append, (key, buf))
+        lent = torch.from_numpy(anchor)
+        lent._m2t_lent = True
+        return lent
 
 
 class StreamingSR:
@@ -104,6 +191,8 @@ class StreamingSR:
         self.output_u8 = output_u8
         self.latencies_s = []
         self._slots = {}  # (slot, frame shape) -> pinned (input, output)
+        self.results = ResultPool()
+        self.handed_out = self.copied_out = 0  # CUDA results lent / copied
         self.graphed = (GraphedForward(model, cfg, self.policy, output_u8=output_u8)
                         if graphs and mesh is None and self.device.type == "cuda"
                         else None)
@@ -131,8 +220,9 @@ class StreamingSR:
     def _submit(self, frames: np.ndarray, slot: int, seq=None):
         """Enqueue one batch of frames (request ``seq`` of a stream); returns
         what :meth:`_take` needs. CUDA: pinned upload, forward (a graph
-        replay, or eager), copy back into the slot's pinned buffer, all
-        asynchronous, then an event. CPU: the result itself."""
+        replay, or eager), copy back into a buffer lent by ``results`` (the
+        slot's pinned buffer where the pool lends none), all asynchronous,
+        then an event. CPU: the result itself."""
         with span(STREAM_SUBMIT, seq):
             frames = np.asarray(frames, np.float32)
             if self.device.type != "cuda":
@@ -143,18 +233,33 @@ class StreamingSR:
                 y = self.graphed(pin_in)
             else:
                 y = self._fwd(pin_in.to(self.device, non_blocking=True))
-            pin_out.copy_(y, non_blocking=True)
+            out = self._landing(pin_out)
+            out.copy_(y, non_blocking=True)
             done = torch.cuda.Event(enable_timing=True)
             done.record(torch.cuda.current_stream(self.device))
-            return pin_out, done
+            return out, done
+
+    def _landing(self, pin_out: torch.Tensor) -> torch.Tensor:
+        """Where a result's copy back lands: a buffer that ``results`` lends
+        for it, or the slot's ``pin_out`` past the pool's limit."""
+        out = self.results.lend(pin_out.shape, pin_out.dtype)
+        if out is None:
+            self.copied_out += 1
+            return pin_out
+        self.handed_out += 1
+        return out
 
     @staticmethod
     def _take(out: torch.Tensor, done) -> np.ndarray:
         """The frame's result on the host. CUDA: waits on the frame's own
-        event and hands out a copy (the slot's buffer is reused)."""
+        event, then hands out a lent buffer as it is and copies the slot's
+        buffer, which the slot reuses."""
         if done is None:
             return out.numpy()
         done.synchronize()
+        if ResultPool.is_lent(out):
+            with span(STREAM_HANDOFF):
+                return out.numpy()
         return out.numpy().copy()
 
     def warmup(self, frame_shape: Tuple[int, ...]) -> None:
@@ -198,13 +303,20 @@ class StreamingSR:
 
         # at most `depth` frames are in flight and frame n - depth was
         # popped before frame n is submitted, so frame n takes slot n mod depth
-        for n, frame in enumerate(frames):
-            t0 = time.perf_counter()
-            inflight.append((*self._submit(frame, n % self.depth, n), t0, n))
-            if len(inflight) >= self.depth:
+        try:
+            for n, frame in enumerate(frames):
+                t0 = time.perf_counter()
+                inflight.append((*self._submit(frame, n % self.depth, n), t0, n))
+                if len(inflight) >= self.depth:
+                    yield pop()
+            while inflight:
                 yield pop()
-        while inflight:
-            yield pop()
+        finally:
+            # a stream left early drops results never taken: their buffers
+            # go back to the pool only once their copies have landed
+            for _, done, _, _ in inflight:
+                if done is not None:
+                    done.synchronize()
 
     def latency_percentiles(self):
         lat = sorted(self.latencies_s or [])

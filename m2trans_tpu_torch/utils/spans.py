@@ -18,9 +18,11 @@ Every span of the port is named here:
   StreamingSR`'s enqueue of a request (the copy into the pinned slot, the
   replay's launch, the copy back's enqueue, the event);
   ``m2t::stream.wait``: the host waiting on a request's event;
-  ``m2t::stream.copy_out``: the result copied out of the pinned slot (on the
-  CPU, handed out). Each carries the request's sequence number as its
-  ``args``.
+  ``m2t::stream.copy_out``: the result handed out (copied out of the slot's
+  pinned buffer where the runner's pool lent none). Each carries the
+  request's sequence number as its ``args``. ``m2t::stream.handoff``,
+  inside a ``copy_out``: the result handed out in the pinned buffer lent
+  for it, with no host copy (CUDA only).
 - ``m2t::loader.epoch``: a train loader's start of an epoch;
   ``m2t::loader.next``: one batch, the wait for it included.
 """
@@ -38,6 +40,7 @@ WAIT = "m2t::wait"
 STREAM_SUBMIT = "m2t::stream.submit"
 STREAM_WAIT = "m2t::stream.wait"
 STREAM_COPY_OUT = "m2t::stream.copy_out"
+STREAM_HANDOFF = "m2t::stream.handoff"
 LOADER_EPOCH = "m2t::loader.epoch"
 LOADER_NEXT = "m2t::loader.next"
 

@@ -652,6 +652,108 @@ def test_streaming_with_graphs_yields_the_eager_frames(dev, depth):
         np.testing.assert_array_equal(a, b)
 
 
+HANDOFF_CASES = [((8, 96, 96, 3), False), ((1, 256, 256, 3), True)]
+
+
+def _handoff_frames(shape, n=12):
+    return [np.random.default_rng(i).uniform(0, 1, shape).astype(np.float32)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("shape, output_u8", HANDOFF_CASES)
+def test_held_results_are_handed_out_pinned_and_unaliased(dev, depth, shape, output_u8):
+    """Every result of a 12-request stream, all held to its end: each is
+    the pinned buffer its copy back landed in (no host copy), and each
+    equals the eager stream's frame bit for bit once the stream is over."""
+    cfg, model = _graphed_case(dev)
+    frames = _handoff_frames(shape)
+    eager = StreamingSR(model, cfg, depth=depth, output_u8=output_u8, graphs=False)
+    want = [a.copy() for a in eager.stream(frames)]
+    run = StreamingSR(model, cfg, depth=depth, output_u8=output_u8)
+    run.warmup(shape)
+    before = run.handed_out
+    held = list(run.stream(frames))
+    assert (run.handed_out - before, run.copied_out) == (12, 0)
+    assert all(torch.from_numpy(a).is_pinned() for a in held)
+    assert len({a.ctypes.data for a in held}) == 12
+    for a, b in zip(held, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, output_u8", HANDOFF_CASES)
+def test_past_the_limit_results_are_copied_out_with_the_same_bits(dev, shape, output_u8,
+                                                                  monkeypatch):
+    """With the pool's limit at two results, a stream whose results are all
+    held lends two buffers and copies the other ten out of the slots."""
+    from m2trans_tpu_torch.parallel import streaming
+
+    cfg, model = _graphed_case(dev)
+    frames = _handoff_frames(shape)
+    eager = StreamingSR(model, cfg, depth=2, output_u8=output_u8, graphs=False)
+    want = [a.copy() for a in eager.stream(frames)]
+    nbytes = want[0].nbytes
+    monkeypatch.setattr(streaming, "HANDOFF_LIMIT_BYTES", 2 * nbytes)
+    run = StreamingSR(model, cfg, depth=2, output_u8=output_u8)
+    held = list(run.stream(frames))
+    assert (run.handed_out, run.copied_out) == (2, 10)
+    assert [torch.from_numpy(a).is_pinned() for a in held] == [True] * 2 + [False] * 10
+    for a, b in zip(held, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dropped_results_pin_no_new_memory(dev):
+    """Results dropped as they come: after a short warm-up the pool makes
+    no buffer and the caching host allocator pins no block."""
+    cfg, model = _graphed_case(dev)
+    frames = _handoff_frames((8, 96, 96, 3), n=6)
+    run = StreamingSR(model, cfg, depth=2)
+    for _ in run.stream(frames):
+        pass
+    made, pinned = run.results.made, torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(4):
+        for out in run.stream(frames):
+            out[0, 0, 0, 0] += 1.0  # the consumer's to write
+    assert run.results.made == made <= 4
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == pinned
+    assert run.handed_out == 30 and run.copied_out == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_stream_spans_on_the_card(dev, depth):
+    """On the card a request is submitted, waited for, then copied out, and
+    every copy-out holds one ``m2t::stream.handoff``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from m2trans_tpu_torch.utils import spans
+
+    cfg, model = _graphed_case(dev)
+    frames = _handoff_frames((1, 96, 96, 3), n=5)
+    run = StreamingSR(model, cfg, depth=depth)
+    run.warmup(frames[0].shape)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert len(list(run.stream(frames))) == 5
+    got = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.name.startswith("m2t::stream.")
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+    want = [spans.STREAM_SUBMIT] * depth
+    for i in range(5):
+        want += [spans.STREAM_WAIT, spans.STREAM_COPY_OUT]
+        if i + depth < 5:
+            want.append(spans.STREAM_SUBMIT)
+    outer = [g for g in got if g[2] != spans.STREAM_HANDOFF]
+    inner = [g for g in got if g[2] == spans.STREAM_HANDOFF]
+    assert [n for _, _, n in outer] == want
+    copies = [(s, e) for s, e, n in outer if n == spans.STREAM_COPY_OUT]
+    assert len(inner) == len(copies)
+    for (s, e), (hs, he, _) in zip(copies, inner):
+        assert s <= hs <= he <= e
+
+
 @pytest.mark.cuda
 def test_train_step_through_kernels(dev):
     """One eager bf16 step of the training loop's ``make_train_step`` at the
