@@ -1168,15 +1168,13 @@ def graphed_phase(dev, cfg, serve) -> dict:
     from PIL import Image
 
     from m2trans_tpu_torch.config import load_config
-    from m2trans_tpu_torch.models.graphed import (
-        COUNTED,
-        GraphedForward,
-        serving_forward,
-    )
+    from m2trans_tpu_torch.models.graphed import GraphedForward, serving_forward
     from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans
+    from m2trans_tpu_torch.models.served import SERVED
     from m2trans_tpu_torch.parallel.streaming import StreamingSR
     from m2trans_tpu_torch.train.checkpoint import load_params_any
 
+    fwd_counted = SERVED["M2Trans"].counted
     kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
     model = init_m2trans(cfg, seed=0, device=dev)
     gen = torch.Generator().manual_seed(22)
@@ -1189,10 +1187,10 @@ def graphed_phase(dev, cfg, serve) -> dict:
             gf = GraphedForward(model, cfg, kern, output_u8=u8)
             for shape in ((8, 96, 96, 3), (1, 512, 512, 3)):
                 x = xs[shape]
-                for f in COUNTED.values():
+                for f in fwd_counted.values():
                     f.launches = 0
                 got = gf(x).clone()
-                counted = {k: f.launches for k, f in COUNTED.items()}
+                counted = {k: f.launches for k, f in fwd_counted.items()}
                 want = serving_forward(model, x, cfg, kern, u8)
                 need(gf.captures == 1 + (shape[0] == 1), f"captures {gf.captures}")
                 need(gf.capture_launches[shape] == {"cftm_branch": 32, "ff_conv": 8,
@@ -2559,8 +2557,7 @@ def hat_phase(dev) -> list:
     shift 0 and 8 and OCA against their plain versions in bf16 (a second run
     bit for bit), device ms (profiler) of each kernel beside its bound
     (each operand once; bytes at 3.35 TB/s or bf16 products at 989 TFLOP/s,
-    the larger) and the plain version's, and MedCLIP's window-7 kernel count
-    left alone by window 16. Then HAT_SRx4 at its published widths (seeded
+    the larger) and the plain version's. Then HAT_SRx4 at its published widths (seeded
     init) through ``GraphedForward``: 36 + 6 launches a capture, replay =
     eager bit for bit, against the plain bf16 forward, device ms of a
     replay; and the infer CLI on a seeded release-layout ``.pth``. Returns
@@ -2574,10 +2571,7 @@ def hat_phase(dev) -> list:
     from m2trans_tpu_torch.models.hat import hat_apply, init_hat, release_state_dict
     from m2trans_tpu_torch.models.m2trans import ComputePolicy
     from m2trans_tpu_torch.ops.kernels import hat_attn
-    from m2trans_tpu_torch.ops.kernels.swin_attn import (
-        window_attention,
-        window_attention_plain,
-    )
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
     from m2trans_tpu_torch.utils.roofline import bound, nbytes
 
     t0 = time.perf_counter()
@@ -2593,10 +2587,11 @@ def hat_phase(dev) -> list:
             if kind == "oca":
                 fn = hat_attn.overlap_attention_plain if plain else hat_attn.overlap_attention
                 return fn(q, k, v, tables["oca"], heads, 16, 24)
-            fn = window_attention_plain if plain else window_attention
-            return fn(q, k, v, tables["sa"], heads, 16, kind)
+            if plain:
+                return window_attention_plain(q, k, v, tables["sa"], heads, 16, kind)
+            return hat_attn.window_attention_16(q, k, v, tables["sa"], heads, kind)
 
-    rows, swin0 = {}, window_attention.launches
+    rows = {}
     for kind in (0, 8, "oca"):
         got, again, want = attend(kind), attend(kind), attend(kind, plain=True)
         need(torch.equal(got, again), f"phase 33 {kind}: two runs of the kernel differ")
@@ -2613,7 +2608,6 @@ def hat_phase(dev) -> list:
               f"{err:.3g} (max {top:.3g}); device {fmt_ms(rows[kind]['device_ms'])} ms, "
               f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), plain "
               f"{fmt_ms(rows[kind]['plain_ms'])} ms ##")
-    need(window_attention.launches == swin0, "phase 33: window 16 moved MedCLIP's kernel count")
 
     # HAT_SRx4 at its published widths through the graphed serving forward
     cfg = load_config(os.path.join(ROOT, "m2trans_tpu_torch", "configs", "HAT_SRx4.yml"))
@@ -3136,7 +3130,7 @@ def run() -> dict:
                  port_model.tblock_apply(blk.attn1, z16, policy=plain))]
         fused = port_model.make_branch_fn(blk, kern)
         unfused = port_model.make_branch_fn(blk, plain)
-        for k, (name, levels) in enumerate(port_model._BRANCHES):
+        for k, (name, levels) in enumerate(port_model.BRANCHES):
             zk = zb[..., 16 * k:16 * (k + 1)]
             outs.append((fused(name, zk, levels), unfused(name, zk, levels)))
         torch.cuda.synchronize()

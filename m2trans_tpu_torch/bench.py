@@ -26,7 +26,7 @@ slope (t2 - t1) / (n2 - n1): device time a step, the graph's gaps between
 kernels included. bench.py perturbs the parameters inside its loop only so
 that XLA cannot hoist the weight preparation out of it; the port's server
 keeps that preparation on the modules between calls
-(``models/m2trans.py::_prepared``), and the graph replays it as the server
+(``models/numerics.py::prepared``), and the graph replays it as the server
 does, so no perturbation is needed: the bench measures what the server
 runs.
 

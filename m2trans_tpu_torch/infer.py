@@ -3,8 +3,9 @@
 Runs super-resolution over a directory of frames (a cine loop) or one
 image and prints one JSON report: throughput, p50/p90/p99 per-frame
 latency, the device, and the launches of the port's kernels. The yml's
-``model`` picks the network: M2Trans (``configs/``, a reference ``.pt``) or
-HAT (``m2trans_tpu_torch/configs/HAT_SRx4.yml``, a released ``.pth``; one
+``model`` picks the network among ``models/served.py``'s: M2Trans
+(``configs/``, a reference ``.pt``) or HAT
+(``m2trans_tpu_torch/configs/HAT_SRx4.yml``, a released ``.pth``; one
 device, no mesh).
 
 Usage:
@@ -71,8 +72,9 @@ def main(argv=None) -> None:
     from PIL import Image
 
     from m2trans_tpu_torch.config import load_config
-    from m2trans_tpu_torch.models.graphed import counted_kernels
-    from m2trans_tpu_torch.models.m2trans import policy_from_config
+    from m2trans_tpu_torch.models import served
+    from m2trans_tpu_torch.models.graphed import counting
+    from m2trans_tpu_torch.models.numerics import policy_from_config
     from m2trans_tpu_torch.parallel import mesh as mesh_lib
     from m2trans_tpu_torch.parallel.spatial import auto_space_mesh_multi
     from m2trans_tpu_torch.parallel.streaming import StreamingSR
@@ -102,7 +104,7 @@ def main(argv=None) -> None:
     mesh = None
     if args.mesh_space > 1:
         mesh = mesh_lib.space_mesh(args.mesh_space)
-    elif args.mesh_space == 0 and cfg.model != "HAT":  # HAT runs on one device
+    elif args.mesh_space == 0 and served.of(model).row_sharded:
         # every distinct frame shape, so the count divides all padded heights
         shapes = sorted({(f.shape[1], f.shape[2]) for f in frames})
         mesh = auto_space_mesh_multi(shapes, cfg,
@@ -118,18 +120,17 @@ def main(argv=None) -> None:
     if args.output and writer:
         os.makedirs(args.output, exist_ok=True)
 
-    counted = counted_kernels(model)
-    launches0 = {k: f.launches for k, f in counted.items()}
     counts0 = (graphed.captures, graphed.replays) if graphed else None
     results0 = (runner.handed_out, runner.copied_out)
     t0 = time.perf_counter()
     n_px = 0
-    for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
-        n_px += sr.shape[1] * sr.shape[2]
-        if args.output and writer:
-            u8 = (sr[0] if args.u8 else
-                  np.clip(sr[0] * 255.0 + 0.5, 0, 255).astype(np.uint8))
-            Image.fromarray(u8).save(os.path.join(args.output, os.path.basename(path)))
+    with counting(served.of(model).counted) as launches:
+        for path, sr in zip(paths, runner.stream(frames, collect_stats=True)):
+            n_px += sr.shape[1] * sr.shape[2]
+            if args.output and writer:
+                u8 = (sr[0] if args.u8 else
+                      np.clip(sr[0] * 255.0 + 0.5, 0, 255).astype(np.uint8))
+                Image.fromarray(u8).save(os.path.join(args.output, os.path.basename(path)))
     wall = time.perf_counter() - t0
 
     report = {
@@ -156,8 +157,7 @@ def main(argv=None) -> None:
             "launches_per_capture": {"x".join(map(str, shape)): n for shape, n
                                      in graphed.capture_launches.items()}}
     else:
-        report["kernel_launches"] = {k: f.launches - launches0[k]
-                                     for k, f in counted.items()}
+        report["kernel_launches"] = launches
     if writer:
         print(json.dumps(report))
     if n_ranks > 1:

@@ -44,8 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from m2trans_tpu_torch.models.m2trans import _no_tf32
 from m2trans_tpu_torch.models.medclip.model import MedCLIP, MedCLIPConfig
+from m2trans_tpu_torch.models.numerics import no_tf32
 from m2trans_tpu_torch.ops.resize import bicubic_resize
 
 Offsets = Tuple[np.ndarray, np.ndarray]
@@ -84,7 +84,7 @@ def _crops_at(x: torch.Tensor, offsets: Offsets, n: int, size: int) -> torch.Ten
               .to(x.device)[:n] for o in offsets)
     sel_y = _selection(ys, size, x.shape[1], x.dtype)
     sel_x = _selection(xs, size, x.shape[2], x.dtype)
-    with _no_tf32():
+    with no_tf32():
         rows = torch.einsum("nbrh,bhwc->nbrwc", sel_y, x)
         crops = torch.einsum("nbsw,nbrwc->nbrsc", sel_x, rows)
     return crops.reshape(n * x.shape[0], size, size, x.shape[3])

@@ -31,8 +31,8 @@ times the sigmoid channel attention of its per-image channel means
 
 Numerics (``ComputePolicy``): f32 is the parity path (TF32 off, the
 attentions' plain versions); bf16 keeps activations and weights in bf16
-(weights laid out once and kept on the modules, as ``models/m2trans.py``
-keeps its kernel operands) and, with ``use_kernels``, runs the attentions
+(weights laid out once and kept on the modules, ``models/numerics.py``'s
+kept operands) and, with ``use_kernels``, runs the attentions
 through their kernel wrappers (CUDA kernels for CUDA tensors, the plain
 versions for CPU tensors). Forward only: HAT is served, not trained, by
 the port.
@@ -40,7 +40,6 @@ the port.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -51,19 +50,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.models.m2trans import (
+from m2trans_tpu_torch.models.numerics import (
     ComputePolicy,
-    _no_tf32,
-    _prepared,
+    f32_parity,
     policy_from_config,
+    prepared,
 )
 from m2trans_tpu_torch.ops import on_device
 from m2trans_tpu_torch.ops.kernels import hat_attn
-from m2trans_tpu_torch.ops.kernels.swin_attn import (
-    relative_position_index,
-    window_attention,
-    window_attention_plain,
-)
+from m2trans_tpu_torch.ops.kernels.swin_attn import relative_position_index, window_attention_plain
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
@@ -314,10 +309,10 @@ def _rgb_mean(rgb_mean) -> np.ndarray:
 
 def _params(mod: nn.Module, dtype):
     """The module's weight and bias in ``dtype``: themselves where they are
-    (the f32 path), else copies kept on the module (``_prepared``)."""
+    (the f32 path), else copies kept on the module (``numerics.prepared``)."""
     if mod.weight.dtype == dtype:
         return mod.weight, mod.bias
-    return _prepared(mod, "wb", dtype, (mod.weight, mod.bias), lambda w, b: (w, b))
+    return prepared(mod, "wb", dtype, (mod.weight, mod.bias), lambda w, b: (w, b))
 
 
 def _linear(mod: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -328,8 +323,8 @@ def _conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """3x3 (zero pad 1) or 1x1 conv of NHWC ``x``; the weight kept as a
     channels-last OIHW view, so cuDNN runs NHWC without a relayout."""
     if dtype != mod.weight.dtype:
-        w, b = _prepared(mod, "wb", dtype, (mod.weight, mod.bias),
-                         lambda w, b: (w.permute(0, 2, 3, 1), b))
+        w, b = prepared(mod, "wb", dtype, (mod.weight, mod.bias),
+                        lambda w, b: (w.permute(0, 2, 3, 1), b))
         w = w.permute(0, 3, 1, 2)
     else:
         w, b = mod.weight, mod.bias
@@ -360,16 +355,15 @@ def _qkv(mod: nn.Module, x: torch.Tensor, dtype):
     return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
 
 
-def _kernels(policy: ComputePolicy) -> bool:
-    return policy.dtype == torch.bfloat16 and policy.use_kernels
-
-
 def hab_apply(blk: HAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
     xn = _ln(blk.norm1, x, dt)
     q, k, v = _qkv(blk.attn, xn, dt)
-    attend = window_attention if _kernels(policy) else window_attention_plain
-    a = attend(q, k, v, blk.attn.relative_position_bias_table, s.heads, s.window, blk.shift)
+    table = blk.attn.relative_position_bias_table
+    if policy.kernels:
+        a = hat_attn.window_attention_16(q, k, v, table, s.heads, blk.shift, window=s.window)
+    else:
+        a = window_attention_plain(q, k, v, table, s.heads, s.window, blk.shift)
     x = x + _linear(blk.attn.proj, a, dt) + _cab(blk.conv_block, xn, dt) * s.conv_scale
     return x + _mlp(blk.mlp, _ln(blk.norm2, x, dt), dt)
 
@@ -377,7 +371,7 @@ def hab_apply(blk: HAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> 
 def ocab_apply(blk: OCAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
     q, k, v = _qkv(blk, _ln(blk.norm1, x, dt), dt)
-    attend = (hat_attn.overlap_attention if _kernels(policy)
+    attend = (hat_attn.overlap_attention if policy.kernels
               else hat_attn.overlap_attention_plain)
     a = attend(q, k, v, blk.relative_position_bias_table, s.heads, s.window, s.key_window)
     x = x + _linear(blk.proj, a, dt)
@@ -400,8 +394,7 @@ def hat_apply(model: HAT, x: torch.Tensor, cfg: Config,
     if policy is None:
         policy = policy_from_config(cfg)
     s, dt = model.sizes, policy.dtype
-    guard = _no_tf32() if dt == torch.float32 else contextlib.nullcontext()
-    with guard:
+    with f32_parity(policy):
         h, w = x.shape[1], x.shape[2]
         mean = on_device(_rgb_mean, s.rgb_mean, device=x.device)
         x = ((pad_to_multiple(x.float(), s.window) - mean) * s.img_range).to(dt)

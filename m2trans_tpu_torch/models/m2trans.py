@@ -10,7 +10,7 @@ The modules carry the reference's state_dict keys (``head.*``,
 ``.pt`` loads with ``load_state_dict(strict=True)``. They hold parameters
 only: the forward is the function :func:`m2trans_apply` on NHWC tensors.
 
-Numerics (:class:`ComputePolicy`):
+Numerics (``models/numerics.py::ComputePolicy``):
   * f32 parity: the plain composition of ``cftm_apply`` and the
     conv -> shuffle tail, TF32 off for matmul and cuDNN (the analogue of
     ``Precision.HIGHEST``);
@@ -37,15 +37,19 @@ rounding.
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from m2trans_tpu_torch.config import Config
+from m2trans_tpu_torch.models.numerics import (
+    ComputePolicy,
+    f32_parity,
+    policy_from_config,
+    prepared,
+)
 from m2trans_tpu_torch.ops.conv import conv2d, gelu_exact
 from m2trans_tpu_torch.ops.halo_attention import halo_attention
 from m2trans_tpu_torch.ops.kernels.ff_conv import (
@@ -63,26 +67,6 @@ from m2trans_tpu_torch.ops.norm import in_stats, instance_norm
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle_fast, ps_weight_perm
 from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
-
-
-@dataclasses.dataclass(frozen=True)
-class ComputePolicy:
-    """Numerics policy threaded through the forward pass. ``use_kernels``
-    is the config's ``use_pallas``: in bf16 it routes K1/K2/K3 (and K1n)
-    through their kernel wrappers."""
-
-    dtype: torch.dtype = torch.float32
-    use_kernels: bool = False
-
-
-def policy_from_config(cfg: Config) -> ComputePolicy:
-    """Numerics policy for ``cfg``, for serving and training alike. The JAX
-    package's ``for_training`` flag turns off a forward-only packed flow
-    that the port does not have; the port's bf16 kernels carry their
-    backward."""
-    if cfg.dtype == "bfloat16":
-        return ComputePolicy(dtype=torch.bfloat16, use_kernels=cfg.use_pallas)
-    return ComputePolicy()
 
 
 # ---------------------------------------------------------------------------
@@ -211,117 +195,24 @@ def init_m2trans(cfg: Config, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Full-f32 matmuls and convolutions for f32 parity mode."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-
-
-def param_key(p: torch.Tensor) -> Tuple[int, int]:
-    """``(data_ptr, version)`` of a parameter: what is kept across calls
-    from its values is stale when either differs. An inference tensor has no
-    version counter and keys by 0, so an in-place write into one (possible
-    only under ``torch.inference_mode``) is not seen."""
-    return p.data_ptr(), 0 if p.is_inference() else p._version
-
-
-class _Operands:
-    """Kernel operands laid out from a module's parameters: ``layout``
-    gives views of the parameters (differentiable), each operand is one of
-    them in ``dtype``, contiguous, in storage of its own."""
-
-    def __init__(self, dtype, params, layout):
-        self.dtype, self.params, self.layout = dtype, params, layout
-        self.key = self._key()
-        with torch.no_grad(), torch.inference_mode(False):
-            self.ops = tuple(torch.empty(v.shape, dtype=dtype, device=v.device).copy_(v)
-                             for v in self._views())
-
-    def _key(self):
-        return (self.dtype, *(param_key(p) for p in self.params))
-
-    def _views(self):
-        return self.layout(*(p.detach() for p in self.params))
-
-    def of(self, dtype, params) -> bool:
-        """Whether these are the operands of ``params`` in ``dtype``, in the
-        storage they were laid out from (perhaps written in place since)."""
-        return (dtype == self.dtype and all(a is b for a, b in zip(params, self.params))
-                and all(p.data_ptr() == k[0] for p, k in zip(params, self.key[1:])))
-
-    def refresh(self) -> None:
-        """Rewrite the operands in place from the parameters as they stand
-        (same storage, no new allocation; a graph that reads them sees the
-        new values). Never under inference mode: the operands are plain
-        tensors, whatever mode first built them."""
-        key = self._key()
-        if key != self.key:
-            with torch.no_grad(), torch.inference_mode(False):
-                for o, v in zip(self.ops, self._views()):
-                    o.copy_(v)
-            self.key = key
-
-
-def _prepared(mod: nn.Module, slot: str, dtype, params, layout):
-    """The kernel operands ``layout(*params)`` (a tuple of views) in
-    ``dtype``, contiguous. Where a gradient is wanted they are built
-    through autograd; otherwise they are kept on the module between calls
-    (not in its state_dict, :class:`_Operands`): rewritten in place when a
-    parameter's :func:`param_key` moves and its storage does not (an
-    optimizer step, an in-place ``load_state_dict``), built anew when a
-    parameter is replaced or the dtype differs."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return tuple(v.to(dtype).contiguous() for v in layout(*params))
-    cache = mod.__dict__.setdefault("_operands", {})
-    hit = cache.get(slot)
-    if hit is not None and hit.of(dtype, params):
-        hit.refresh()
-    else:
-        hit = cache[slot] = _Operands(dtype, tuple(params), layout)
-    return hit.ops
-
-
-def cached_operands(model: nn.Module):
-    """Every operand set ``_prepared`` keeps on ``model``'s modules."""
-    return [op for mod in model.modules()
-            for op in mod.__dict__.get("_operands", {}).values()]
-
-
-def refresh_operands(model: nn.Module) -> None:
-    """Rewrite every kept operand whose parameters were written in place
-    (:meth:`_Operands.refresh`), before a graph that reads them replays."""
-    for op in cached_operands(model):
-        op.refresh()
-
-
 def _qkv_w(tb: TBlock, dtype) -> torch.Tensor:
     """(3C, C, 1, 1) qkv conv -> (C, 3C) matmul weight, q|k|v columns."""
-    return _prepared(tb, "qkv", dtype, (tb.qkv_conv.weight,),
-                     lambda w: (w.reshape(w.shape[0], w.shape[1]).t(),))[0]
+    return prepared(tb, "qkv", dtype, (tb.qkv_conv.weight,),
+                    lambda w: (w.reshape(w.shape[0], w.shape[1]).t(),))[0]
 
 
 def _ff_wb(blk: CFTM, dtype):
     """The feed-forward conv's (3, 3, C_in, C_out) weight and its bias in
     ``dtype``, K3's operands."""
     ff = blk.feed_forward[0]
-    return _prepared(blk, "ff", dtype, (ff.weight, ff.bias),
-                     lambda w, b: (ff_weight_hwio_view(w), b))
+    return prepared(blk, "ff", dtype, (ff.weight, ff.bias),
+                    lambda w, b: (ff_weight_hwio_view(w), b))
 
 
 def _rel(tb: TBlock):
     win, c2 = tb.rel_h.shape[1], tb.rel_h.shape[3]
     return (tb.rel_h.reshape(win, c2).float().contiguous(),
             tb.rel_w.reshape(win, c2).float().contiguous())
-
-
-def _fused(policy: ComputePolicy) -> bool:
-    return policy.use_kernels and policy.dtype == torch.bfloat16
 
 
 def tblock_apply(tb: TBlock, x: torch.Tensor, *, block: int = 8,
@@ -334,7 +225,7 @@ def tblock_apply(tb: TBlock, x: torch.Tensor, *, block: int = 8,
     h, w = x.shape[1], x.shape[2]
     x = pad_to_multiple(x, block)
     rel_h, rel_w = _rel(tb)
-    if _fused(policy):
+    if policy.kernels:
         out = halo_attention_qkv(x.to(policy.dtype), _qkv_w(tb, policy.dtype),
                                  rel_h, rel_w, block=block, halo=halo)
     else:
@@ -354,7 +245,7 @@ def make_branch_fn(blk: CFTM, policy: ComputePolicy, *, block: int = 8,
 
     def branch(name, z, levels):
         tb = getattr(blk, name)
-        if _fused(policy):
+        if policy.kernels:
             rel_h, rel_w = _rel(tb)
             return halo_attention_qkv(z.to(policy.dtype), _qkv_w(tb, policy.dtype),
                                       rel_h, rel_w, levels=levels, block=block,
@@ -370,7 +261,8 @@ def make_branch_fn(blk: CFTM, policy: ComputePolicy, *, block: int = 8,
     return branch
 
 
-_BRANCHES = (("attn1", 0), ("attn2", 1), ("attn3", 2), ("attn4", 2))
+# a CFTM's four branches: the TBlock and its Haar DWT levels
+BRANCHES = (("attn1", 0), ("attn2", 1), ("attn3", 2), ("attn4", 2))
 
 
 def cftm_apply(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
@@ -381,7 +273,7 @@ def cftm_apply(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
     branch = make_branch_fn(blk, policy, block=block, halo=halo)
     xs = torch.chunk(instance_norm(x), 4, dim=-1)
     outs, prev = [], None
-    for (name, levels), xk in zip(_BRANCHES, xs):
+    for (name, levels), xk in zip(BRANCHES, xs):
         if prev is not None:
             xk = (xk + prev) * 0.5
         prev = branch(name, xk, levels) + xk
@@ -402,7 +294,7 @@ def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
     inv, tfull = in_stats(x)
     cb = x.shape[-1] // 4
     outs, prev = [], None
-    for k, (name, levels) in enumerate(_BRANCHES):
+    for k, (name, levels) in enumerate(BRANCHES):
         tb = getattr(blk, name)
         sk = inv[:, k * cb:(k + 1) * cb].contiguous()
         tk = tfull[:, k * cb:(k + 1) * cb].contiguous()
@@ -484,8 +376,7 @@ def m2trans_apply(model: M2Trans, x: torch.Tensor, cfg: Config,
     (B, H*scale, W*scale, 3), in the policy's dtype."""
     if policy is None:
         policy = policy_from_config(cfg)
-    guard = _no_tf32() if policy.dtype == torch.float32 else contextlib.nullcontext()
-    with guard:
+    with f32_parity(policy):
         h, w = x.shape[1], x.shape[2]
         x = pad_to_multiple(x, cfg.pad_multiple).to(policy.dtype)
         res = conv2d(x, model.head.weight, model.head.bias, padding="reflect",

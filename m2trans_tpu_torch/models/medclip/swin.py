@@ -24,11 +24,7 @@ import torch
 import torch.nn as nn
 
 from m2trans_tpu_torch.models.medclip import ParamTree, layer_norm, normal_
-from m2trans_tpu_torch.ops.kernels.swin_attn import (
-    relative_position_index as _relative_position_index,
-    shift_attn_mask as _shift_attn_mask,  # noqa: F401 (SW-MSA's mask, by its old name)
-    window_attention,
-)
+from m2trans_tpu_torch.ops.kernels.swin_attn import relative_position_index, window_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,7 +242,7 @@ def swin_to_torch(enc: SwinEncoder, prefix: str = "") -> Dict[str, torch.Tensor]
         enc["patch_embed"]["w"].permute(3, 2, 0, 1))
     put("embeddings.patch_embeddings.projection.bias", enc["patch_embed"]["b"])
     norm("embeddings.norm", enc["embed_norm"])
-    rpi = torch.from_numpy(_relative_position_index(cfg.window_size))
+    rpi = torch.from_numpy(relative_position_index(cfg.window_size))
     for si, stage in enumerate(enc["stages"]):
         for di, blk in enumerate(stage["blocks"]):
             base = f"encoder.layers.{si}.blocks.{di}"

@@ -10,8 +10,7 @@ on the tensor cores, forward only:
   position bias of the ((2*16-1)^2, heads) table, + the -100 SW-MSA mask,
   softmax, P V, head merge, window reverse, roll back. The index rules are
   MedCLIP's (:mod:`.swin_attn`: ``window_tokens``, ``token_regions``,
-  ``relative_position_index``), parametric in the window;
-  ``swin_attn.window_attention`` sends window 16 here.
+  ``relative_position_index``), parametric in the window.
 - :func:`overlap_attention`: the overlapping cross-attention of a group's
   last block (OCA, kernel ``m2t_hat_oca``): the 16^2 query windows of the
   unshifted map against the 24^2 key windows centred on them, keys and
@@ -170,14 +169,15 @@ def _no_grad(q, k, v, what):
 
 
 def window_attention_16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        table: torch.Tensor, heads: int, shift: int) -> torch.Tensor:
+                        table: torch.Tensor, heads: int, shift: int,
+                        window: int = WINDOW) -> torch.Tensor:
     """SW-MSA at window 16 (see the module docstring): the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version (at ``window``) for CPU tensors."""
     if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, table, heads, WINDOW, shift)
+        return window_attention_plain(q, k, v, table, heads, window, shift)
     if q.device.type != "cuda":
         raise ValueError(f"HAT window attention: unsupported device {q.device}")
-    _check(q, k, v, heads, WINDOW, "window attention")
+    _check(q, k, v, heads, window, "window attention")
     if not 0 <= shift < WINDOW:
         raise ValueError(f"HAT window attention kernel: shift must be in [0, {WINDOW}), "
                          f"got {shift}")

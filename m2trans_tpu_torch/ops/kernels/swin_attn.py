@@ -20,9 +20,8 @@ version's too: :func:`window_tokens` (the pixel each window token reads),
 :func:`token_regions` (its SW-MSA region) and
 :func:`relative_position_index`. :func:`window_attention` launches the
 kernels for CUDA tensors (window 7, head dims 8, 16 and 32, f32 or bf16;
-window 16, HAT's, goes to ``hat_attn.window_attention_16``, bf16 forward
-only; anything else raises) and runs :func:`window_attention_plain` for
-CPU tensors only.
+anything else raises) and runs :func:`window_attention_plain` for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -199,10 +198,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or q.shape[1] % window or q.shape[2] % window:
         raise ValueError(f"swin window attention: a (B, H, W, C) map with H and W "
                          f"multiples of the window {window}, got {tuple(q.shape)}")
-    if q.device.type == "cuda" and window == 16:  # HAT's windows
-        from m2trans_tpu_torch.ops.kernels.hat_attn import window_attention_16
-
-        return window_attention_16(q, k, v, table, heads, shift)
     if q.device.type == "cuda":
         _check(q, k, v, table, heads, window, shift)
         return SwinAttnFn.apply(q, k, v, table, heads, shift)

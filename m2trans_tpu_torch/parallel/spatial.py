@@ -39,7 +39,6 @@ over the data column, so every rank again holds the whole batch.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Iterable, Optional, Tuple, Union
 
@@ -47,16 +46,14 @@ import torch
 
 from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.models.m2trans import (
-    _BRANCHES,
-    ComputePolicy,
+    BRANCHES,
     M2Trans,
-    _no_tf32,
     branch_identity,
     ff_residual,
     make_branch_fn,
-    policy_from_config,
     tail_apply,
 )
+from m2trans_tpu_torch.models.numerics import ComputePolicy, f32_parity, policy_from_config
 from m2trans_tpu_torch.ops.conv import conv2d
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.parallel.mesh import DataSpaceMesh, SpaceMesh, space_mesh, world
@@ -141,7 +138,7 @@ def _cftm_sharded(blk, x: torch.Tensor, *, mesh: SpaceMesh,
     xs = torch.chunk(_instance_norm_global(xe, m, mesh) * mask, 4, dim=-1)
     outs, prev = [], None
     if policy.dtype == torch.bfloat16:
-        for (name, levels), xk in zip(_BRANCHES, xs):
+        for (name, levels), xk in zip(BRANCHES, xs):
             # the cascade sum is rounded outside K1, then scaled by s = 0.5
             z, s = (xk, 1.0) if prev is None else (xk + prev, 0.5)
             prev = branch_identity(blk, name, z, levels, s=s, policy=policy,
@@ -149,7 +146,7 @@ def _cftm_sharded(blk, x: torch.Tensor, *, mesh: SpaceMesh,
             outs.append(prev)
         return ff_residual(blk, torch.cat(outs, dim=-1), xe, policy)[:, m:-m]
     branch = make_branch_fn(blk, policy, block=block, halo=halo)
-    for (name, levels), xk in zip(_BRANCHES, xs):
+    for (name, levels), xk in zip(BRANCHES, xs):
         if prev is not None:
             xk = (xk + prev) * 0.5
         prev = (branch(name, xk, levels) + xk) * mask
@@ -215,8 +212,7 @@ def _rows_forward(model: M2Trans, x: torch.Tensor, cfg: Config, mesh: SpaceMesh,
             f"padded height {hp} must divide over {n} shards in multiples of "
             f"{mult}; pick H so that pad32(H) % {mult * n} == 0")
     hs = hp // n
-    guard = _no_tf32() if policy.dtype == torch.float32 else contextlib.nullcontext()
-    with guard:
+    with f32_parity(policy):
         xl = pad_to_multiple(x, mult)[:, mesh.rank * hs:(mesh.rank + 1) * hs]
         xe = _exchange_rows(xl.to(policy.dtype), 1, mesh, fill="reflect")
         res = conv2d(xe, model.head.weight, model.head.bias, padding="reflect",

@@ -2,8 +2,9 @@
 m2trans_tpu/parallel/streaming.py.
 
 Frames go through the model's serving forward
-(``models/graphed.py::serving_forward``: M2Trans or HAT) on the model's
-device or, for M2Trans with a ``mesh``, through
+(``models/graphed.py::serving_forward``, a model of ``models/served.py``)
+on the model's device or, for a model whose entry allows sharding by rows
+(``row_sharded``) with a ``mesh``, through
 :func:`~m2trans_tpu_torch.parallel.spatial.spatial_sharded_forward` over
 its ranks: every rank of the mesh runs the same stream and takes part in
 every frame, and each gets the whole SR frame. A rank outside the mesh
@@ -60,9 +61,9 @@ import numpy as np
 import torch
 
 from m2trans_tpu_torch.config import Config
+from m2trans_tpu_torch.models import served as served_models
 from m2trans_tpu_torch.models.graphed import GraphedForward, served, serving_forward
-from m2trans_tpu_torch.models.hat import HAT
-from m2trans_tpu_torch.models.m2trans import ComputePolicy
+from m2trans_tpu_torch.models.numerics import ComputePolicy
 from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 from m2trans_tpu_torch.parallel.spatial import spatial_sharded_forward
 from m2trans_tpu_torch.utils.spans import (
@@ -156,7 +157,7 @@ class StreamingSR:
     """Fixed-model streaming super-resolution runner.
 
     Args:
-      model: the port's M2Trans or HAT, already on its device.
+      model: a served model (``models/served.py``), already on its device.
       cfg: model Config.
       mesh: optional :class:`~m2trans_tpu_torch.parallel.mesh.SpaceMesh`
         whose ranks shard every frame by rows (a rank outside it runs the
@@ -179,9 +180,10 @@ class StreamingSR:
         if mesh is not None and not isinstance(mesh, SpaceMesh):
             raise TypeError(f"StreamingSR: mesh must be a SpaceMesh "
                             f"(parallel.mesh.space_mesh), got {type(mesh).__name__}")
-        if mesh is not None and isinstance(model, HAT):
-            raise ValueError("StreamingSR: HAT runs on one device; sharding its windows "
-                             "over rows is not supported (serve it without a mesh)")
+        if mesh is not None and not served_models.of(model).row_sharded:
+            raise ValueError(f"StreamingSR: {type(model).__name__} runs on one device; "
+                             "sharding its frames over rows is not supported (serve it "
+                             "without a mesh)")
         self.model = model
         self.mesh = mesh
         self.cfg = cfg

@@ -43,8 +43,9 @@ def graphed_microbatched(model, cfg, policy, x0, micro_batch):
     static output. Also the launches counted in the capture."""
     import torch
 
-    from m2trans_tpu_torch.models.graphed import COUNTED, capture, served
+    from m2trans_tpu_torch.models.graphed import capture, counting, served
     from m2trans_tpu_torch.models.m2trans import m2trans_apply_microbatched
+    from m2trans_tpu_torch.models.served import SERVED
 
     inp = torch.zeros_like(x0)
 
@@ -52,9 +53,8 @@ def graphed_microbatched(model, cfg, policy, x0, micro_batch):
         return served(m2trans_apply_microbatched(model, inp, cfg, policy,
                                                  micro_batch=micro_batch), False)
 
-    side_before = {k: f.launches for k, f in COUNTED.items()}
-    graph, out = capture(fn, torch.cuda.graph_pool_handle())
-    both = {k: f.launches - side_before[k] for k, f in COUNTED.items()}
+    with counting(SERVED["M2Trans"].counted) as both:
+        graph, out = capture(fn, torch.cuda.graph_pool_handle())
     launches = {k: v // 2 for k, v in both.items()}  # the side-stream run and the capture
 
     def step(x):

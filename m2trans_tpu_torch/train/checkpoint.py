@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.models.hat import HAT, load_hat_state_dict, release_params
+from m2trans_tpu_torch.models import served
 from m2trans_tpu_torch.models.m2trans import M2Trans
 from m2trans_tpu_torch.train.convert import (
     load_reference_state_dict,
@@ -33,31 +33,12 @@ from m2trans_tpu_torch.train.convert import (
 
 def load_params_any(path: Optional[str], cfg: Config,
                     device: Optional[torch.device] = None) -> torch.nn.Module:
-    """A model from a reference ``.pt``: the full training dict
-    (``{'model_state_dict': ...}``) or a bare state dict. With ``model:
-    HAT`` a HAT from a released ``.pth`` (``params_ema``, else ``params``,
-    else a bare state dict)."""
+    """The model ``cfg.model`` from the checkpoint file at ``path``, read by
+    the loader of its ``models/served.py`` entry; a model the port does not
+    serve raises."""
     if path is None:
         raise ValueError("model_path is not set")
-    if cfg.model == "HAT":
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        with torch.device("meta"):
-            model = HAT(cfg)
-        return load_hat_state_dict(model.to_empty(device=device or "cpu"),
-                                   release_params(ckpt))
-    if os.path.isdir(path) or not path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: the torch port reads reference .pt checkpoints only; it "
-            "does not read orbax checkpoint directories (orbax is a JAX "
-            "library). Write a .pt from one with the JAX package's converter: "
-            "python convert_checkpoint.py --config <yml> --input <orbax dir> "
-            "--output <file>.pt")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    with torch.device("meta"):
-        model = M2Trans(cfg)
-    model = model.to_empty(device=device or "cpu")
-    return load_reference_state_dict(model, sd)
+    return served.by_name(cfg.model).load(path, cfg, device)
 
 
 def checkpoint_path(models_path: str, scale: int, epoch: int) -> str:

@@ -58,7 +58,7 @@ from m2trans_tpu_torch.config import Config
 from m2trans_tpu_torch.data.images import write_image
 from m2trans_tpu_torch.metrics import METRICS, frame_metrics
 from m2trans_tpu_torch.metrics.fsim import bank_for_frame
-from m2trans_tpu_torch.models.graphed import GraphedForward, capture
+from m2trans_tpu_torch.models.graphed import GraphCache, GraphedForward
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
@@ -85,59 +85,31 @@ def eval_runner(model: M2Trans, cfg: Config, policy: ComputePolicy) -> GraphedFo
     return runner
 
 
-class _MetricsEntry:
-    def __init__(self, sr, hr, graph, out, held):
-        self.sr, self.hr, self.graph, self.out, self.held = sr, hr, graph, out, held
-
-
-class GraphedMetrics:
+class GraphedMetrics(GraphCache):
     """:func:`~m2trans_tpu_torch.metrics.frame_metrics` replayed from a CUDA
-    graph per HR shape (at most ``max_graphs`` shapes, the first ones seen;
-    later shapes run eagerly), all in one pool. A call returns the graph's
-    static (4,) row, valid until the next call; on the CPU the eager row.
-    A graph holds the FSIM filter bank it reads (``metrics/fsim.py`` keeps
-    a few banks and drops the oldest)."""
+    graph per HR shape (``models/graphed.py::GraphCache``: at most
+    ``max_graphs`` shapes, the first ones seen; later shapes run eagerly),
+    all in one pool. A call ``(sr, hr)`` returns the graph's static (4,)
+    row, valid until the next call; on the CPU the eager row. A graph holds
+    the FSIM filter bank it reads (``metrics/fsim.py`` keeps a few banks and
+    drops the oldest)."""
+
+    n_inputs = 2  # the SR and the HR frame
 
     def __init__(self, cfg: Config, full_metrics: bool, device,
                  max_graphs: Optional[int] = EVAL_MAX_GRAPHS):
+        super().__init__(device, max_graphs)
         self.kw = dict(scale=cfg.scale, colors=cfg.colors, rgb_range=cfg.rgb_range,
                        full_metrics=full_metrics)
-        self.device = torch.device(device)
-        self.graphs = self.device.type == "cuda"  # False: the eager row
-        self.max_graphs = max_graphs
-        self._pool = None
-        self._graphs: Dict[Tuple[int, ...], _MetricsEntry] = {}
-        self.captures = self.replays = self.eager_calls = 0
 
-    def _entry(self, shape: Tuple[int, ...]) -> Optional[_MetricsEntry]:
-        if shape in self._graphs:
-            return self._graphs[shape]
-        if self.max_graphs is not None and len(self._graphs) >= self.max_graphs:
-            return None
-        if not self._graphs:
-            self._pool = torch.cuda.graph_pool_handle()
-        sr = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        hr = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        graph, out = capture(lambda: frame_metrics(sr, hr, **self.kw), self._pool)
-        held = bank_for_frame(shape[1], shape[2], self.device) \
-            if self.kw["full_metrics"] else None
-        self._graphs[shape] = _MetricsEntry(sr, hr, graph, out, held)
-        self.captures += 1
-        return self._graphs[shape]
+    def _fn(self, sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
+        return frame_metrics(sr, hr, **self.kw)
 
-    @torch.inference_mode()
-    def __call__(self, sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
-        if not self.graphs:
-            return frame_metrics(sr, hr, **self.kw)
-        entry = self._entry(tuple(hr.shape))
-        if entry is None:
-            self.eager_calls += 1
-            return frame_metrics(sr, hr, **self.kw)
-        entry.sr.copy_(sr)
-        entry.hr.copy_(hr)
-        entry.graph.replay()
-        self.replays += 1
-        return entry.out
+    def _capture(self, shape: Tuple[int, ...]):
+        entry = super()._capture(shape)
+        if self.kw["full_metrics"]:
+            entry.held = bank_for_frame(shape[1], shape[2], self.device)
+        return entry
 
 
 def metrics_runner(model: M2Trans, cfg: Config, full_metrics: bool) -> GraphedMetrics:

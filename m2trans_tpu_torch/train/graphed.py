@@ -46,7 +46,7 @@ the same optimizer, so graph and eager agree bit for bit.
 
 After each replay the parameters' version counters are bumped: a replay
 writes them in place without autograd seeing it, and the no-grad operand
-caches (``models/m2trans.py::_prepared``) and the serving graphs
+caches (``models/numerics.py::prepared``) and the serving graphs
 (``models/graphed.py``) key by ``param_key``, pointer and version. Each
 parameter's ``.grad`` is the replayed graph's gradient. The losses come
 back as a copy: the static output is overwritten by the next replay.
@@ -63,12 +63,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from m2trans_tpu_torch.models.graphed import COUNTED as FORWARD_COUNTED
+from m2trans_tpu_torch.models.graphed import counting
+from m2trans_tpu_torch.models.served import SERVED
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch_bwd
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_bwd
 
-# the train step's kernel wrappers and their launch counters
-COUNTED = {**FORWARD_COUNTED, "cftm_branch_bwd": cftm_branch_bwd,
+# the train step's kernel wrappers and their launch counters: M2Trans's
+# forward's and the two backward kernels
+COUNTED = {**SERVED["M2Trans"].counted, "cftm_branch_bwd": cftm_branch_bwd,
            "tail_band_bwd": tail_band_bwd}
 
 LOSS_NAMES = ("loss", "l1", "clip")
@@ -190,11 +192,9 @@ class GraphedTrainStep:
         if not self._graphs:  # no graph uses the old pool (models/graphed.py)
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = {k: f.launches for k, f in COUNTED.items()}
-        with torch.cuda.graph(graph, pool=self._pool):
+        with counting(COUNTED) as launches, torch.cuda.graph(graph, pool=self._pool):
             out = self.step_fn(*inputs)
-        self.capture_launches[key] = {k: f.launches - before[k]
-                                      for k, f in COUNTED.items()}
+        self.capture_launches[key] = launches
         self.captures += 1
         return _Entry(inputs, graph, out, [p.grad for p in self.params])
 

@@ -1160,9 +1160,9 @@ def test_lr_set_between_epochs_reaches_the_replay(dev):
 def test_no_grad_forward_after_graphed_steps_reads_the_new_weights(dev):
     """A replay writes the weights in place; the step bumps their version
     counters, so ``param_key`` moves, and the no-grad forward (the Trainer's
-    panel, ``_prepared``'s operands) and the graphed eval forward give what a
+    panel, ``numerics.prepared``'s operands) and the graphed eval forward give what a
     fresh model loaded with the same weights gives."""
-    from m2trans_tpu_torch.models.m2trans import param_key, policy_from_config
+    from m2trans_tpu_torch.models.numerics import param_key, policy_from_config
     from m2trans_tpu_torch.train.evaluate import make_forward_fn
 
     case = _step_case(dev, "bf16 kernels")
@@ -1516,13 +1516,14 @@ def _hat_case(dev, b, h, w, seed=0, c=180, heads=6):
 
 def _hat_attend(kind, q, k, v, tables, heads, plain=False):
     from m2trans_tpu_torch.ops.kernels import hat_attn
-    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention, window_attention_plain
+    from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
 
     if kind == "oca":
         fn = hat_attn.overlap_attention_plain if plain else hat_attn.overlap_attention
         return fn(q, k, v, tables["oca"], heads, 16, 24)
-    fn = window_attention_plain if plain else window_attention
-    return fn(q, k, v, tables["sa"], heads, 16, kind)
+    if plain:
+        return window_attention_plain(q, k, v, tables["sa"], heads, 16, kind)
+    return hat_attn.window_attention_16(q, k, v, tables["sa"], heads, kind)
 
 
 @pytest.mark.cuda

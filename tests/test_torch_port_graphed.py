@@ -117,7 +117,7 @@ def test_weights_key_changes_on_in_place_writes():
 
 def test_weights_key_of_a_model_made_under_inference_mode():
     """Parameters made under inference_mode have no version counter: the
-    key (the one ``_prepared`` keeps its operands by) is taken all the same,
+    key (the one ``numerics.prepared`` keeps its operands by) is taken all the same,
     the model serves through GraphedForward, and a parameter replaced by
     another tensor moves the key and rebuilds the cached operand."""
     _, _, cfg, ref = _pair()
@@ -188,7 +188,7 @@ def test_graphs_are_captured_per_shape_and_dropped_when_a_weight_changes(monkeyp
     with torch.inference_mode():
         entry = gf._entry(tuple(b.shape))
         assert entry is first and gf.captures == 2 and len(gf._graphs) == 2
-        entry.inp.copy_(b)
+        entry.inputs[0].copy_(b)
         entry.graph.replay()
         want = m2trans_apply_microbatched(model, b, cfg, ComputePolicy()).float()
     assert torch.equal(entry.out, want)
@@ -196,7 +196,7 @@ def test_graphs_are_captured_per_shape_and_dropped_when_a_weight_changes(monkeyp
     with torch.inference_mode():
         entry = gf._entry(tuple(b.shape))
         assert entry is not first and gf.captures == 3 and len(gf._graphs) == 1
-        entry.inp.copy_(b)
+        entry.inputs[0].copy_(b)
         entry.graph.replay()
         want = m2trans_apply_microbatched(model, b, cfg, ComputePolicy()).float()
     assert torch.equal(entry.out, want)

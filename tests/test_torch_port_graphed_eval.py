@@ -2,7 +2,7 @@
 
 A CUDA graph exists only on the card, so here the pieces that let the eval
 graphs outlive a weight update and let the metrics run as a graph are
-held to what they replace and to the JAX package: ``_prepared``'s in-place
+held to what they replace and to the JAX package: ``numerics.prepared``'s in-place
 refresh of the kept operands (same storage, the values a fresh layout
 gives); ``GraphedForward`` keeping its graphs across an in-place write
 (the operands refreshed before the replay) and dropping them when a
@@ -38,12 +38,11 @@ from m2trans_tpu_torch.models.m2trans import (
     ComputePolicy,
     _ff_wb,
     _qkv_w,
-    cached_operands,
     init_m2trans,
     policy_from_config,
 )
+from m2trans_tpu_torch.models.numerics import cached_operands
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_weight_hwio
-from m2trans_tpu_torch.train import evaluate
 from m2trans_tpu_torch.train.evaluate import (
     GraphedMetrics,
     eval_runner,
@@ -96,7 +95,6 @@ def stand_in(monkeypatch):
         return _FakeGraph(fn, out, check), out
 
     monkeypatch.setattr(graphed, "capture", fake_capture)
-    monkeypatch.setattr(evaluate, "capture", fake_capture)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
     return models
 

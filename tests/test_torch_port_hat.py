@@ -27,8 +27,8 @@ import torch
 from h100bench.reference import hat as ref
 from m2trans_tpu_torch.config import Config, load_config
 from m2trans_tpu_torch.models import hat as port
-from m2trans_tpu_torch.models.graphed import HAT_COUNTED, counted_kernels
-from m2trans_tpu_torch.models.m2trans import ComputePolicy
+from m2trans_tpu_torch.models import served
+from m2trans_tpu_torch.models.numerics import ComputePolicy
 from m2trans_tpu_torch.ops.kernels import hat_attn
 from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
 from m2trans_tpu_torch.parallel.streaming import StreamingSR
@@ -159,7 +159,9 @@ def test_streaming_serves_hat_on_the_cpu():
             assert g.shape == (2, 32, 48, 3) and np.array_equal(g, want)
             ref_out = ref.forward(sd, torch.from_numpy(f), TINY).numpy()
             assert np.abs(g - ref_out).mean() < 5e-3  # bf16 against f32
-    assert counted_kernels(net) is HAT_COUNTED
+    assert served.of(net) is served.SERVED["HAT"]
+    assert served.of(net).counted == {"hat_wattn": hat_attn.window_attention_16,
+                                      "hat_oca": hat_attn.overlap_attention}
     from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 
     with pytest.raises(ValueError, match="HAT runs on one device"):

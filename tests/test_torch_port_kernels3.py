@@ -281,7 +281,7 @@ def test_make_branch_fn_matches_jax(mode):
     jbranch = jax_make_branch_fn(jblk, jpol)
     branch = port_model.make_branch_fn(blk, pol)
     z = np.random.default_rng(4).normal(0, 1, (2, 32, 32, 4)).astype(np.float32)
-    for name, levels in port_model._BRANCHES:
+    for name, levels in port_model.BRANCHES:
         want = np.asarray(jbranch(name, _j(z, jpol.dtype), levels)).astype(np.float32)
         with torch.no_grad():
             got = branch(name, _t(z, pol.dtype), levels)

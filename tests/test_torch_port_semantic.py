@@ -161,9 +161,10 @@ def test_swin_shift_and_merge_order_matter():
     """The shifted block's roll and mask and the merge order change the
     output, so the test above would see a mistake in either."""
     from m2trans_tpu_torch.models.medclip import swin
+    from m2trans_tpu_torch.ops.kernels import swin_attn
 
     params = np_tree(init_swin(jax.random.PRNGKey(4), JSwinConfig(**SHIFTED)))
-    mask = swin._shift_attn_mask(14, 14, 7, 3)
+    mask = swin_attn.shift_attn_mask(14, 14, 7, 3)
     assert mask.shape == (4, 49, 49) and (mask == -100).any() and (mask[0] == 0).all()
     attn = ParamTree(params["stages"][0]["blocks"][1]["attn"])
     y = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 14, 14, 16))

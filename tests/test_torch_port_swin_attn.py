@@ -168,7 +168,6 @@ def test_window_tokens_are_the_rolled_partition(h, w, shift):
 def test_regions_give_the_shift_mask(h, w, shift):
     want = _shift_attn_mask(h, w, WINDOW, shift)
     np.testing.assert_array_equal(swin_attn.shift_attn_mask(h, w, WINDOW, shift), want)
-    np.testing.assert_array_equal(swin._shift_attn_mask(h, w, WINDOW, shift), want)
 
 
 def test_relative_position_index_is_swins():
