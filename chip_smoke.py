@@ -73,7 +73,13 @@ and the x2 recipe step with the kernels and with the plain attention; then
 (phase 33) HAT x4's attention kernels (``csrc/hat_attn.cu``) against their
 plain versions at a request's shape, their device times beside their bound,
 HAT_SRx4 through the graphed serving forward (36 + 6 launches a capture,
-replay against eager) and the infer CLI on a seeded ``.pth``. The
+replay against eager) and the infer CLI on a seeded ``.pth``. Phase 34,
+which runs right after phase 16 (later in the run the profiler records
+none of the kernels' own launches), holds the CFTM's instance-norm
+statistics (``csrc/in_stats.cu``) against their plain version at the
+serving forward's shapes, a second call bit for bit, and gives their
+device times (read from HBM and L2-warm) beside their bound and the plain
+version's. The
 CLIs and Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -1194,7 +1200,7 @@ def graphed_phase(dev, cfg, serve) -> dict:
                 want = serving_forward(model, x, cfg, kern, u8)
                 need(gf.captures == 1 + (shape[0] == 1), f"captures {gf.captures}")
                 need(gf.capture_launches[shape] == {"cftm_branch": 32, "ff_conv": 8,
-                                                    "tail_band": 1},
+                                                    "tail_band": 1, "in_stats": 16},
                      f"launches in the capture of {shape}: "
                      f"{gf.capture_launches[shape]}")
                 # the side-stream run and the capture; a replay counts none
@@ -1407,7 +1413,7 @@ def graphed_train_phase(dev, lr_b, hr_b, work) -> dict:
         (launches,) = runner.capture_launches.values()
         k = int(c.use_pallas)
         want = {"cftm_branch": 32 * k, "ff_conv": 8 * k, "tail_band": k,
-                "cftm_branch_bwd": 32 * k, "tail_band_bwd": k}
+                "cftm_branch_bwd": 32 * k, "tail_band_bwd": k, "in_stats": 0}
         need(launches == want, f"{name}: a capture counted {launches}, want {want}")
         need(counted == {key: 2 * v for key, v in launches.items()},
              f"{name}: launches around the capture {counted} (the side-stream "
@@ -1685,7 +1691,7 @@ def graphed_aug_eval_phase(dev, lr_b, hr_b, work) -> dict:
              f"{name}: captures / replays {(runner.captures, runner.replays)}, want "
              f"(2, {steps}): one graph with cutout, one without")
         want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1, "cftm_branch_bwd": 32,
-                "tail_band_bwd": 1}
+                "tail_band_bwd": 1, "in_stats": 0}
         for key, got in runner.capture_launches.items():
             need(got == want, f"{name}: a capture counted {got}, want {want}")
         need(counted == {k: 2 * 2 * v for k, v in want.items()},
@@ -1898,7 +1904,9 @@ def tools_phase() -> dict:
     def positive(v) -> bool:
         return isinstance(v, (int, float)) and math.isfinite(v) and v > 0
 
-    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
+    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1, "in_stats": 16}
+    # a train step's statistics stay torch's (autograd)
+    step_want = {**fwd_want, "in_stats": 0, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
     counts = {}
 
     def drive(phase, name, tool, args, kernels):
@@ -1943,7 +1951,7 @@ def tools_phase() -> dict:
          f"phase 28: {step['replay_vs_eager']}")
     entry = step["steps"]["recipe-f32 b8"]
     need(positive(entry["ms_queued"]) and positive(entry["device_ms"])
-         and all(n == {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+         and all(n == step_want
                  for n in entry["launches_per_capture"]), f"phase 28: {entry}")
     for scale in (2, 3):  # the train step at x2 / x3, HR 384 (LR 192 / 128)
         name = f"bench_clip_train x{scale}"
@@ -1957,7 +1965,7 @@ def tools_phase() -> dict:
              f"{step['replay_vs_eager']}")
         entry = step["steps"]["L1 b8"]
         need(positive(entry["ms_queued"]) and positive(entry["device_ms"])
-             and all(n == {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+             and all(n == step_want
                      for n in entry["launches_per_capture"]), f"phase 28 {name}: {entry}")
     roof = drive(29, "roofline", roofline, ["--programs", "fwd-x4", "step-L1"],
                  fwd + ("cftm_branch_bwd", "tail_band_bwd"))
@@ -2049,8 +2057,9 @@ def scales_phase(dev, work) -> dict:
     from m2trans_tpu_torch.train.loop import make_optimizer, make_train_step
 
     t0 = time.perf_counter()
-    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
-    step_want = {**fwd_want, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
+    fwd_want = {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1, "in_stats": 16}
+    # a train step's statistics stay torch's (autograd)
+    step_want = {**fwd_want, "in_stats": 0, "cftm_branch_bwd": 32, "tail_band_bwd": 1}
 
     def counts():
         return {k: f.launches for k, f in COUNTED.items()}
@@ -2671,6 +2680,94 @@ def hat_phase(dev) -> list:
          "library_ms": None, "per_launch": rows["oca"]}]
 
 
+IN_STATS_SHAPES = ((8, 96, 96, 64), (1, 512, 512, 64), (1, 256, 256, 64))
+IN_STATS_RTOL = 1e-5  # the kernel's s and t vs its plain version's
+L2_FLUSH_BYTES = 256 * 2 ** 20  # five times the H100's 50 MB L2
+
+
+def in_stats_phase(dev) -> dict:
+    """Phase 34, the CFTM's instance-norm statistics (``csrc/in_stats.cu``)
+    at the shapes the serving forward feeds them (a block's input at
+    8 x 96^2 and 1 x 512^2, and 1 x 256^2, 64 channels, seeded bf16 maps
+    whose channels have their own offset and scale): ``in_stats_affine``
+    against ``in_stats_affine_plain`` on the same card tensors, s and t
+    within 1e-5 relative, a second call the same bits, two launches a call;
+    the kernels' device ms with the L2 filled before each call by a read of
+    256 MB (so x comes from HBM, and no dirty lines are written back), the
+    same L2-warm (repeated calls: x at 512^2, 33.5 MB, stays in the L2),
+    the plain version's, and the bound (one bf16 read of x at 3.35 TB/s).
+    Returns the kernel report's row, its headline at 1 x 512^2."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine, in_stats_affine_plain
+    from m2trans_tpu_torch.tools.timing import is_device_work
+    from m2trans_tpu_torch.utils.roofline import bound, nbytes
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_ms(fn, n=20, warm=3):
+        """Device ms of the statistics' two kernels (sums, finish) in one
+        call of ``fn``, each call after a read of ``flush`` (which leaves the
+        L2 holding clean lines of it, none of x); (None, None) where the
+        profiler records no device time."""
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        us = {"in_stats_sum_kernel": 0.0, "in_stats_finish_kernel": 0.0}
+        for ev in prof.key_averages():
+            for key in us:
+                if is_device_work(ev) and key in ev.key:
+                    t = getattr(ev, "device_time_total", None)
+                    us[key] += ev.cuda_time_total if t is None else t
+        return tuple(v / 1e3 / n if v else None for v in us.values())
+
+    t0 = time.perf_counter()
+    rows = {}
+    with torch.inference_mode():
+        for i, shape in enumerate(IN_STATS_SHAPES):
+            rng = np.random.default_rng(34 + i)
+            c = shape[-1]
+            off = rng.uniform(0.2, 1.0, c) * rng.choice([-1.0, 1.0], c)
+            scale = rng.uniform(0.5, 1.5, c)
+            x = torch.from_numpy((rng.standard_normal(shape, dtype=np.float32) * scale
+                                  + off).astype(np.float32)).to(dev).bfloat16()
+            name = "x".join(map(str, shape))
+            n0 = in_stats_affine.launches
+            got, again = in_stats_affine(x), in_stats_affine(x)
+            need(in_stats_affine.launches == n0 + 4,
+                 f"phase 34 {name}: {in_stats_affine.launches - n0} launches for two calls")
+            want = in_stats_affine_plain(x)
+            need(tuple(got.shape) == tuple(want.shape) == (2, 4, shape[0], c // 4),
+                 f"phase 34 {name}: shape {tuple(got.shape)}")
+            need(torch.equal(got, again), f"phase 34 {name}: two calls differ")
+            rel = float(((got - want).abs() / want.abs().clamp_min(1e-7)).max())
+            need(rel <= IN_STATS_RTOL, f"phase 34 {name}: kernel vs plain max rel {rel:.3g}")
+            b = bound(nbytes(x), 0.0)
+            sums, fin = cold_ms(lambda: in_stats_affine(x))
+            rows[name] = {"max_rel_err": rel, **b,
+                          "device_ms": None if None in (sums, fin) else sums + fin,
+                          "device_ms_by_kernel": {"sum": sums, "finish": fin},
+                          "device_ms_l2_warm": device_ms(lambda: in_stats_affine(x)),
+                          "plain_ms": device_ms(lambda: in_stats_affine_plain(x))}
+            r = rows[name]
+            share = (f"{100 * b['bound_ms'] / r['device_ms']:.0f}%"
+                     if r["device_ms"] else "not measured")
+            print(f"## phase 34 statistics {name}: max rel {rel:.3g}; device ms "
+                  f"{fmt_ms(r['device_ms'])} from HBM (sums {fmt_ms(sums)}, finish "
+                  f"{fmt_ms(fin)}; {share} of the bound {b['bound_ms']:.5f}), "
+                  f"{fmt_ms(r['device_ms_l2_warm'])} L2-warm; plain {fmt_ms(r['plain_ms'])} ##")
+    del flush
+    print(f"## phase 34 in {time.perf_counter() - t0:.1f} s ##")
+    return {"shape": "1x512x512x64", **rows["1x512x512x64"], "by_shape": rows}
+
+
 def run() -> dict:
     import torch
 
@@ -2694,6 +2791,7 @@ def run() -> dict:
         halo_attention_qkv,
         halo_attention_qkv_plain,
     )
+    from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine
     from m2trans_tpu_torch.ops.kernels.tail_band import (
         tail_band_bwd,
         tail_band_fused,
@@ -2794,13 +2892,16 @@ def run() -> dict:
         kern = ComputePolicy(dtype=torch.bfloat16, use_kernels=True)
         plain = ComputePolicy(dtype=torch.bfloat16, use_kernels=False)
         cftm_branch.launches = ff_conv.launches = tail_band_fused.launches = 0
+        in_stats_affine.launches = 0
         y = model(x, kern)
         torch.cuda.synchronize()
         launches = {"cftm_branch": cftm_branch.launches,
                     "ff_conv": ff_conv.launches,
-                    "tail_band": tail_band_fused.launches}
-        need(launches == {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1},
-             f"flagship forward launched {launches}, want 32 K1, 8 K3 and 1 K2")
+                    "tail_band": tail_band_fused.launches,
+                    "in_stats": in_stats_affine.launches}
+        need(launches == {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1, "in_stats": 16},
+             f"flagship forward launched {launches}, want 32 K1, 8 K3, 1 K2 and "
+             "16 of the statistics")
         need(tuple(y.shape) == (8, 384, 384, 3), f"output shape {tuple(y.shape)}")
         need(torch.isfinite(y.float()).all().item(), "output not finite")
         yp = m2trans_apply(model, x, cfg, plain)
@@ -2851,8 +2952,8 @@ def run() -> dict:
             per_capture = graphs.get("launches_per_capture", {})
             need(graphs.get("captures") == 1 and graphs.get("replays") == 4
                  and sorted(per_capture) == ["1x100x76x3", "1x96x96x3"]
-                 and all(n == {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1}
-                         for n in per_capture.values()),
+                 and all(n == {"cftm_branch": 32, "ff_conv": 8, "tail_band": 1,
+                               "in_stats": 16} for n in per_capture.values()),
                  f"infer --depth {depth} report {report}")
             for name, (h, w) in shapes.items():
                 with Image.open(os.path.join(serve, f"out_{depth}", name)) as img:
@@ -3350,6 +3451,12 @@ def run() -> dict:
                       f"{v[1]:.4f} | {fmt_ms(v[3])}, bound {v[4]['bound_ms']:.4f}"
                       for k, v in k4.items()))
 
+    # 34. the CFTM's IN statistics kernel against its plain version at the
+    # serving shapes, its device times beside its bound; run beside phase
+    # 16's times, since later in a whole run the profiler records none of
+    # the kernels' own launches
+    in_stats_row = in_stats_phase(dev)
+
     # 17. the recipe's step with the MedCLIP semantic loss
     semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work)
 
@@ -3490,6 +3597,11 @@ def run() -> dict:
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          **add_bounds(*(v[4] for v in k4.values())), "library_ms": k4_plain_ms},
+        # the JAX package takes these statistics in plain XLA: no kernel
+        {"name": "in_stats", "route": "cuda", "source": csrc + "in_stats.cu",
+         "replaces": None, "launches": launches["in_stats"], **in_stats_row,
+         "library_ms": None, "launches_graph_capture": graph_launches["in_stats"],
+         "launches_train_graph_capture": train_graph_launches["in_stats"]},
         swin_row, *hat_rows]}
 
 

@@ -14,13 +14,15 @@ Numerics (``models/numerics.py::ComputePolicy``):
   * f32 parity: the plain composition of ``cftm_apply`` and the
     conv -> shuffle tail, TF32 off for matmul and cuDNN (the analogue of
     ``Precision.HIGHEST``);
-  * bf16: the structure of the JAX ``_cftm_apply_fused`` — IN statistics,
-    head conv, the global residual and the depth-to-space are plain torch;
-    each CFTM runs its 4 branches through K1 at levels 0/1/2/2 and its
-    feed-forward conv, bias and module residual through K3, and the tail
-    runs through K2 (32 + 8 + 1 launches for an 8-block forward). With
-    ``use_kernels`` the kernel wrappers run (plain versions on CPU
-    tensors); without, the plain versions run on any device.
+  * bf16: the structure of the JAX ``_cftm_apply_fused`` — head conv, the
+    global residual and the depth-to-space are plain torch; each CFTM takes
+    its IN statistics (one ``in_stats_affine`` call, two launches, when no
+    gradient flows; plain torch under autograd), runs its 4 branches through
+    K1 at levels 0/1/2/2 and its feed-forward conv, bias and module residual
+    through K3, and the tail runs through K2 (32 + 8 + 1 launches and 16 of
+    the statistics for an 8-block serving forward). With ``use_kernels`` the
+    kernel wrappers run (plain versions on CPU tensors); without, the plain
+    versions run on any device.
 
 The forward is differentiable in both modes: in bf16 with kernels the
 backward runs K1b and K2b (32 + 1 launch groups for an 8-block model) and
@@ -62,8 +64,9 @@ from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch_plain,
     halo_attention_qkv,
 )
+from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine, in_stats_affine_plain
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_apply
-from m2trans_tpu_torch.ops.norm import in_stats, instance_norm
+from m2trans_tpu_torch.ops.norm import instance_norm
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle_fast, ps_weight_perm
 from m2trans_tpu_torch.ops.wavelet import haar_dwt, haar_iwt
@@ -285,21 +288,26 @@ def cftm_apply(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
 
 def _cftm_apply_fused(blk: CFTM, x: torch.Tensor, *, policy: ComputePolicy,
                       block: int, halo: int) -> torch.Tensor:
-    """bf16 CFTM: IN statistics in plain torch, each branch one K1 call
-    (affine, cascade add, DWT, qkv, attention, IWT, residual), then the ff
-    conv, its bias and the module residual as one K3 call."""
+    """bf16 CFTM: IN statistics, each branch one K1 call (affine, cascade
+    add, DWT, qkv, attention, IWT, residual), then the ff conv, its bias and
+    the module residual as one K3 call. The statistics are one
+    ``in_stats_affine`` call when no gradient flows to ``x``; under autograd
+    they are its plain version, whose backward is torch's."""
     branch = cftm_branch if policy.use_kernels else cftm_branch_plain
     ff = ff_conv if policy.use_kernels else ff_conv_plain
     x = x.to(policy.dtype)
-    inv, tfull = in_stats(x)
     cb = x.shape[-1] // 4
+    if policy.use_kernels and not (torch.is_grad_enabled() and x.requires_grad):
+        st = in_stats_affine(x)
+    else:
+        st = in_stats_affine_plain(x)
+    # branches 1-3 halved already; unbind, not indexing, so that the
+    # backward gathers the branches' ds, dt in one stack each
+    ss, ts = (v.unbind(0) for v in st.unbind(0))
     outs, prev = [], None
     for k, (name, levels) in enumerate(BRANCHES):
         tb = getattr(blk, name)
-        sk = inv[:, k * cb:(k + 1) * cb].contiguous()
-        tk = tfull[:, k * cb:(k + 1) * cb].contiguous()
-        if prev is not None:
-            sk, tk = sk * 0.5, tk * 0.5
+        sk, tk = ss[k], ts[k]
         rel_h, rel_w = _rel(tb)
         prev = branch(x[..., k * cb:(k + 1) * cb], _qkv_w(tb, policy.dtype),
                       rel_h, rel_w, sk, tk, x_add=prev, r=0.5, levels=levels,

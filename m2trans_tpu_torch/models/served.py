@@ -20,6 +20,7 @@ from m2trans_tpu_torch.models.numerics import ComputePolicy
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
 from m2trans_tpu_torch.ops.kernels.hat_attn import overlap_attention, window_attention_16
+from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
 from m2trans_tpu_torch.train.convert import load_reference_state_dict
 
@@ -79,7 +80,8 @@ def _load_hat(path, cfg, device):
 SERVED: Dict[str, ServedModel] = {
     "M2Trans": ServedModel(
         M2Trans, _m2trans_forward,
-        {"cftm_branch": cftm_branch, "ff_conv": ff_conv, "tail_band": tail_band_fused},
+        {"cftm_branch": cftm_branch, "ff_conv": ff_conv, "tail_band": tail_band_fused,
+         "in_stats": in_stats_affine},
         row_sharded=True, load=_load_m2trans),
     # 36 SW-MSA + 6 OCA launches a forward at HAT_SRx4's depth
     "HAT": ServedModel(

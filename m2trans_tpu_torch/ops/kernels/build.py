@@ -79,6 +79,8 @@ SIGNATURES = {
     "m2t_ff_conv": [P, P, P, P, P,                 # oc x w b out
                     I, I, I, I, P],                # B H W C stream
     "m2t_ff_conv_smem": [I],
+    "m2t_in_stats": [P, P, P, I, LL, I, F, P],    # x part st B HW C eps stream
+    "m2t_in_stats_part_floats": [I, LL, I],        # B HW C
     "m2t_relayout": [P, P, I, I, I, I, I, I, I, P],  # src dst B H W g nb cb pack stream
     "m2t_mark": [I, P],                            # which stream
     "m2t_swin_attn": [P, P, P, P, P,               # q k v table out

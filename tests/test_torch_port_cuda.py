@@ -34,6 +34,7 @@ from m2trans_tpu_torch.models import m2trans as port_model
 from m2trans_tpu_torch.models.m2trans import ComputePolicy, init_m2trans, m2trans_apply
 from m2trans_tpu_torch.ops.kernels import build, relayout
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv, ff_conv_plain, ff_weight_hwio
+from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine, in_stats_affine_plain
 from m2trans_tpu_torch.ops.kernels.halo_attn import (
     cftm_branch,
     cftm_branch_bwd,
@@ -316,6 +317,66 @@ def test_forward_through_kernels(dev):
     assert float(d.max()) < 1e-1 and float(d.mean()) < 5e-3
 
 
+def _in_stats_map(seed, shape):
+    """A seeded bf16 NHWC map whose channels have their own offset and
+    scale, so that no mean sits near zero and E[x]^2 stays within four times
+    the variance (as in tests/test_torch_port_in_stats.py)."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    off = rng.uniform(0.2, 1.0, c) * rng.choice([-1.0, 1.0], c)
+    scale = rng.uniform(0.5, 1.5, c)
+    return torch.from_numpy((rng.standard_normal(shape, dtype=np.float32) * scale
+                             + off).astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 96, 96, 64), (1, 512, 512, 64), (1, 256, 256, 64),
+                                   (2, 192, 192, 64), (3, 40, 72, 64), (2, 33, 17, 32),
+                                   (2, 24, 40, 96), (3, 20, 28, 128), (2, 12, 20, 2048)])
+def test_in_stats_kernel_matches_plain(dev, shape):
+    """The statistics kernel against its plain version on the card: s and t
+    of every branch within 1e-5 relative (the f32 sums differ in order
+    only), two launches a call, and a second call gives the same bits. The
+    widths take each launch geometry: C = 32 (64 pixels a round), 64, 96
+    (12 vectors a pixel, which do not divide 256 threads: 252), 128 and
+    2048 (one pixel a round, the shared rows full)."""
+    x = _in_stats_map(shape[1] + shape[0], shape).to(dev)
+    want = in_stats_affine_plain(x)
+    n0 = in_stats_affine.launches
+    got = in_stats_affine(x)
+    again = in_stats_affine(x)
+    assert in_stats_affine.launches == n0 + 4
+    assert got.shape == want.shape == (2, 4, shape[0], shape[-1] // 4)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_in_stats_kernel_raises_on_what_it_does_not_take(dev):
+    x = _in_stats_map(0, (2, 16, 16, 64)).to(dev)
+    n0 = in_stats_affine.launches
+    for bad, match in ((x.float(), "bf16"), (x[:, :, ::2], "contiguous"),
+                       (_in_stats_map(0, (2, 16, 16, 48)).to(dev), "multiple of 32")):
+        with pytest.raises(ValueError, match=match):
+            in_stats_affine(bad)
+    assert in_stats_affine.launches == n0
+
+
+@pytest.mark.cuda
+def test_served_forward_capture_counts_the_statistics(dev):
+    """A capture of the x4 serving forward (8 blocks) counts 32 K1, 8 K3, 1
+    K2 and 16 statistics launches (two a CFTM), and replays the eager bits."""
+    cfg, model = _graphed_case(dev, n_blocks=8)
+    kern = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(1, 96, 96, 3, generator=torch.Generator().manual_seed(6)).to(dev)
+    gf = GraphedForward(model, cfg, kern)
+    with torch.inference_mode():
+        got = gf(x).clone()
+        assert torch.equal(got, serving_forward(model, x, cfg, kern, False))
+    assert gf.capture_launches[tuple(x.shape)] == {"cftm_branch": 32, "ff_conv": 8,
+                                                   "tail_band": 1, "in_stats": 16}
+
+
 def _grad_close(got, want, name):
     want = want.float().cpu()
     tol = max(2e-3, 2e-2 * float(want.abs().max()))
@@ -536,7 +597,7 @@ def _graphed_case(dev, n_blocks=2):
 def test_graph_replay_equals_eager_bit_for_bit(dev, shape, output_u8):
     """bf16 with the kernels: the replayed graph gives the eager forward's
     bits, on its first call (capture, then replay) and after; the capture
-    itself counts 4 K1, 1 K3 and 1 K2 launches a block."""
+    itself counts 4 K1, 1 K3, 2 statistics launches a block and 1 K2."""
     cfg, model = _graphed_case(dev)
     kern = ComputePolicy(torch.bfloat16, True)
     x = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(dev)
@@ -548,7 +609,7 @@ def test_graph_replay_equals_eager_bit_for_bit(dev, shape, output_u8):
         assert torch.equal(first, want) and torch.equal(again, want)
     assert (gf.captures, gf.replays) == (1, 2)
     assert gf.capture_launches[shape] == {"cftm_branch": 8, "ff_conv": 2,
-                                          "tail_band": 1}
+                                          "tail_band": 1, "in_stats": 4}
 
 
 @pytest.mark.cuda
@@ -631,7 +692,7 @@ def test_graph_of_the_other_policies_equals_eager(dev, policy):
         got = gf(x).clone()
         assert torch.equal(got, serving_forward(model, x, cfg, pol, False))
     assert gf.capture_launches[tuple(x.shape)] == {"cftm_branch": 0, "ff_conv": 0,
-                                                   "tail_band": 0}
+                                                   "tail_band": 0, "in_stats": 0}
 
 
 @pytest.mark.cuda
@@ -1121,7 +1182,8 @@ def test_graphed_train_step_equals_eager(dev, kind):
     augmentations drawn anew each step: losses, parameters and Adam's
     moments and steps bit for bit, for bf16 with the kernels, f32 and the
     recipe (MedCLIP loss). One graph is captured, counting 4 K1 + 1 K3 + 1
-    K2 + 4 K1b + 1 K2b launches a block with the kernels (none in f32)."""
+    K2 + 4 K1b + 1 K2b launches a block with the kernels (none in f32), and
+    no statistics kernel: under autograd the statistics stay torch's."""
     case = _step_case(dev, kind)
     eager = _train(dev, case, graphs=False)
     again = _train(dev, case, graphs=False)
@@ -1135,7 +1197,8 @@ def test_graphed_train_step_equals_eager(dev, kind):
     (launches,) = runner.capture_launches.values()
     k = kind != "f32"
     assert launches == {"cftm_branch": 4 * k, "ff_conv": k, "tail_band": k,
-                        "cftm_branch_bwd": 4 * k, "tail_band_bwd": k}
+                        "cftm_branch_bwd": 4 * k, "tail_band_bwd": k,
+                        "in_stats": 0}  # the step's statistics stay torch's
     assert bool(torch.isfinite(graphed[0]).all()) and bool((graphed[0][:, 2] > 0).all()) \
         == (kind == "recipe")
 

@@ -182,7 +182,7 @@ def test_graphs_are_captured_per_shape_and_dropped_when_a_weight_changes(monkeyp
         gf._entry(tuple(c.shape))
         assert gf.captures == 2 and len(gf._graphs) == 2
         assert gf.capture_launches[tuple(a.shape)] == {
-            "cftm_branch": 0, "ff_conv": 0, "tail_band": 0}  # f32: no kernel
+            "cftm_branch": 0, "ff_conv": 0, "tail_band": 0, "in_stats": 0}  # f32: no kernel
     with torch.no_grad():
         model.head.bias.add_(0.25)
     with torch.inference_mode():
@@ -279,7 +279,7 @@ def test_infer_cli_on_cpu_runs_eager(tmp_path, capsys, depth):
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "cuda_graphs" not in report and report["depth"] == depth
     assert report["kernel_launches"] == {"cftm_branch": 0, "ff_conv": 0,
-                                         "tail_band": 0}
+                                         "tail_band": 0, "in_stats": 0}
     for name in ("a.png", "b.png"):
         with Image.open(frames / name) as img:
             x = torch.from_numpy(np.asarray(img, np.float32)[None] / 255.0)
