@@ -79,7 +79,11 @@ none of the kernels' own launches), holds the CFTM's instance-norm
 statistics (``csrc/in_stats.cu``) against their plain version at the
 serving forward's shapes, a second call bit for bit, and gives their
 device times (read from HBM and L2-warm) beside their bound and the plain
-version's. The
+version's. Phase 35, right after phase 34, holds MambaIR x4's
+four-way scan (``csrc/ss2d_scan.cu``) against its plain version at a
+request's shape and on a frame that is not square, its device time beside
+its bound, MambaIR_SRx4 through the graphed serving forward (36 launches a
+capture, replay against eager) and the infer CLI on a seeded ``.pth``. The
 CLIs and Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -2768,6 +2772,122 @@ def in_stats_phase(dev) -> dict:
     return {"shape": "1x512x512x64", **rows["1x512x512x64"], "by_shape": rows}
 
 
+MAMBAIR_BATCH = 8  # phase 35: the mambair-x4-serve-b8 request, 8 x 96^2
+# the scan kernel against its plain version: one bf16 rounding step of the
+# largest output at most (the f32 values differ in their last bits: the
+# hardware exp2 and log2, another order of the sums), almost no element
+# rounding the other way
+SCAN_TOL = (4e-3, 1e-5)
+
+
+def mambair_phase(dev) -> dict:
+    """Phase 35, MambaIR x4 (``models/mambair.py``) and SS2D's four-way scan
+    (``csrc/ss2d_scan.cu``). The kernel against its plain version at d_inner
+    360, N 16, R 12 on a request's shape (8 x 96^2) and on a frame that is
+    not square (2 x 37 x 53; general tables: A, D and the dt bias seeded,
+    not the init's), a second call bit for bit; device ms (profiler) of a
+    launch beside its bound (6 FP32 operations a state update at 67
+    TFLOP/s, or x, the projections and y at 3.35 TB/s, the larger) and the
+    plain version's. Then MambaIR_SRx4 at its published widths (the release
+    init) through ``GraphedForward``: 36 launches a capture, replay = eager,
+    against the plain bf16 forward, device ms of a replay; and the infer CLI
+    on a seeded release-layout ``.pth``. Returns the kernel report's row."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from m2trans_tpu_torch.config import load_config
+    from m2trans_tpu_torch.models.graphed import GraphedForward, serving_forward
+    from m2trans_tpu_torch.models.mambair import init_mambair, mambair_apply
+    from m2trans_tpu_torch.models.numerics import ComputePolicy
+    from m2trans_tpu_torch.models.sr_blocks import release_state_dict
+    from m2trans_tpu_torch.ops.kernels import ss2d_scan as sc
+    from m2trans_tpu_torch.utils.roofline import F32_FLOP_PER_S, bound, nbytes
+
+    t0 = time.perf_counter()
+    rows = {}
+    for i, (b, h, w) in enumerate(((MAMBAIR_BATCH, 96, 96), (2, 37, 53))):
+        g = torch.Generator().manual_seed(35 + i)
+        d, r = 360, 12
+        x = (torch.randn(b, h, w, d, generator=g) * 0.5).bfloat16().to(dev)
+        xdbl = (torch.randn(b, h, w, 4 * (r + 32), generator=g) * 0.5).bfloat16().to(dev)
+        tables = ((torch.randn(4, d, r, generator=g) * r ** -0.5).to(dev),
+                  (torch.randn(4, d, generator=g) - 3.0).to(dev),
+                  (-torch.exp(torch.randn(4, d, 16, generator=g))).to(dev),
+                  torch.randn(4, d, generator=g).to(dev))
+        name = f"{b}x{h}x{w}"
+        with torch.no_grad():
+            n0 = sc.ss2d_scan.launches
+            got, again = sc.ss2d_scan(x, xdbl, *tables), sc.ss2d_scan(x, xdbl, *tables)
+            want = sc.ss2d_scan_plain(x, xdbl, *tables)
+        need(sc.ss2d_scan.launches == n0 + 2, f"phase 35 {name}: {sc.ss2d_scan.launches - n0} "
+             "launches for two calls")
+        need(torch.equal(got, again), f"phase 35 {name}: two calls differ")
+        err = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        need(float(err.max()) <= SCAN_TOL[0] * top and float(err.mean()) <= SCAN_TOL[1] * top,
+             f"phase 35 {name}: kernel vs plain max {float(err.max()):.3g} mean "
+             f"{float(err.mean()):.3g} (max {top:.3g})")
+        bnd = bound(nbytes(x, xdbl, got), 6.0 * 4 * b * h * w * d * 16, F32_FLOP_PER_S)
+        bound_ms = bnd["bound_ms"]
+        rows[name] = {"max_rel_err": float(err.max()) / top, **bnd,
+                      "device_ms": device_ms(lambda: sc.ss2d_scan(x, xdbl, *tables)),
+                      "plain_ms": device_ms(lambda: sc.ss2d_scan_plain(x, xdbl, *tables), n=2,
+                                            warm=1)}
+        rw = rows[name]
+        share = (f"{100 * bound_ms / rw['device_ms']:.1f}%" if rw["device_ms"]
+                 else "not measured")
+        print(f"## phase 35 scan {name}: max rel {rw['max_rel_err']:.3g}; device "
+              f"{fmt_ms(rw['device_ms'])} ms, bound {bound_ms:.4f} ms ({rw['bound_by']}, "
+              f"{share}), plain {fmt_ms(rw['plain_ms'])} ms ##")
+
+    # MambaIR_SRx4 at its published widths through the graphed serving forward
+    yml = os.path.join(ROOT, "m2trans_tpu_torch", "configs", "MambaIR_SRx4.yml")
+    cfg = load_config(yml)
+    model = init_mambair(cfg, seed=1, device=dev)
+    policy = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(MAMBAIR_BATCH, 96, 96, 3, generator=torch.Generator().manual_seed(35)).to(dev)
+    gf = GraphedForward(model, cfg, policy)
+    got = gf(x).clone()
+    launches = gf.capture_launches[tuple(x.shape)]
+    need(launches == {"ss2d_scan": 36}, f"phase 35: a capture counted {launches}")
+    with torch.inference_mode():
+        want = serving_forward(model, x, cfg, policy, False)
+        plain = mambair_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
+    need(torch.equal(got, want), f"phase 35: replay vs eager max {errs(got, want)[0]}")
+    vs_plain = float((got - plain).abs().mean())
+    need(vs_plain < 2e-3, f"phase 35: kernel vs plain bf16 forward mean {vs_plain:.3g}")
+    fwd_ms = device_ms(lambda: gf(x), n=5)
+    print(f"## phase 35 MambaIR_SRx4 8x96^2: capture {launches}; replay = eager; vs plain bf16 "
+          f"mean {vs_plain:.3g}; device ms a replay {fmt_ms(fwd_ms)} ##")
+
+    # the infer CLI on a seeded release-layout .pth
+    work = os.path.join(ROOT, "build", "chip_smoke", "mambair")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "frames"))
+    torch.save({"params": release_state_dict(model)}, os.path.join(work, "MambaIR_SR_x4.pth"))
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (60, 75, 3), dtype=np.uint8)).save(
+            os.path.join(work, "frames", f"{i}.png"))
+    res = subprocess.run(
+        [sys.executable, "-m", "m2trans_tpu_torch.infer", "--config", yml, "--model_path",
+         os.path.join(work, "MambaIR_SR_x4.pth"), "--input", os.path.join(work, "frames"),
+         "--output", os.path.join(work, "out")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    need(res.returncode == 0, f"phase 35 infer CLI: {res.stderr[-4000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    need(report["cuda_graphs"]["launches_per_capture"] == {"1x60x75x3": {"ss2d_scan": 36}},
+         f"phase 35 infer CLI: {report}")
+    print(f"## phase 35 infer CLI: {json.dumps(report)}; phase 35 in "
+          f"{time.perf_counter() - t0:.1f} s ##")
+    head = rows[f"{MAMBAIR_BATCH}x96x96"]
+    return {"name": "ss2d_scan", "route": "cuda", "source": "m2trans_tpu_torch/csrc/ss2d_scan.cu",
+            "replaces": None, "launches_graph_capture": launches["ss2d_scan"],
+            "shape": f"{MAMBAIR_BATCH}x96x96x360", **head, "library_ms": None,
+            "by_shape": rows, "mambair_forward_device_ms": fwd_ms}
+
+
 def run() -> dict:
     import torch
 
@@ -3457,6 +3577,11 @@ def run() -> dict:
     # the kernels' own launches
     in_stats_row = in_stats_phase(dev)
 
+    # 35. MambaIR x4: SS2D's scan kernel at a request's shape and a frame
+    # that is not square, the graphed serving forward at the published
+    # widths, the infer CLI (run here, beside phase 34, for the same reason)
+    mambair_row = mambair_phase(dev)
+
     # 17. the recipe's step with the MedCLIP semantic loss
     semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work)
 
@@ -3602,7 +3727,7 @@ def run() -> dict:
          "replaces": None, "launches": launches["in_stats"], **in_stats_row,
          "library_ms": None, "launches_graph_capture": graph_launches["in_stats"],
          "launches_train_graph_capture": train_graph_launches["in_stats"]},
-        swin_row, *hat_rows]}
+        swin_row, *hat_rows, mambair_row]}
 
 
 def main() -> int:

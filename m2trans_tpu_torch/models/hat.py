@@ -28,6 +28,8 @@ MLP(LN(x)); CAB is conv 3x3 C -> C / compress_ratio, GELU, conv 3x3 back,
 times the sigmoid channel attention of its per-image channel means
 (squeeze C -> C / squeeze_factor -> C). An OCAB: x + proj(OCA(LN(x))), then x
 + MLP(LN(x)). The attentions: :mod:`m2trans_tpu_torch.ops.kernels.hat_attn`.
+The stem, the CAB, the pixel-shuffle tail and the checkpoint helpers are
+:mod:`m2trans_tpu_torch.models.sr_blocks`'s, shared with MambaIR.
 
 Numerics (``ComputePolicy``): f32 is the parity path (TF32 off, the
 attentions' plain versions); bf16 keeps activations and weights in bf16
@@ -50,19 +52,27 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.models.numerics import (
-    ComputePolicy,
-    f32_parity,
-    policy_from_config,
-    prepared,
+from m2trans_tpu_torch.models.numerics import ComputePolicy, f32_parity, policy_from_config
+from m2trans_tpu_torch.models.sr_blocks import (
+    CAB,
+    RGB_MEAN,
+    PatchEmbed,
+    add_pixelshuffle_tail,
+    cab_apply,
+    conv,
+    layer_norm,
+    linear,
+    normalised_input,
+    release_state_dict,
+    rgb_mean,
+    tail_apply,
 )
-from m2trans_tpu_torch.ops import on_device
 from m2trans_tpu_torch.ops.kernels import hat_attn
 from m2trans_tpu_torch.ops.kernels.swin_attn import relative_position_index, window_attention_plain
 from m2trans_tpu_torch.ops.pad import pad_to_multiple
-from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
-RGB_MEAN = (0.4488, 0.4371, 0.4040)
+__all__ = ["HAT", "HATSizes", "hat_apply", "init_hat", "load_hat_state_dict",
+           "release_state_dict"]
 RELEASED_NAMES = {"window_size": "window"}  # the yml's name -> HATSizes'
 
 
@@ -143,22 +153,6 @@ class _WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
 
-class _ChannelAttention(nn.Module):
-    def __init__(self, dim: int, squeeze: int):
-        super().__init__()
-        self.attention = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), nn.Conv2d(dim, dim // squeeze, 1), nn.ReLU(),
-            nn.Conv2d(dim // squeeze, dim, 1), nn.Sigmoid())
-
-
-class _CAB(nn.Module):
-    def __init__(self, dim: int, compress: int, squeeze: int):
-        super().__init__()
-        self.cab = nn.Sequential(
-            nn.Conv2d(dim, dim // compress, 3, 1, 1), nn.GELU(),
-            nn.Conv2d(dim // compress, dim, 3, 1, 1), _ChannelAttention(dim, squeeze))
-
-
 class HAB(nn.Module):
     def __init__(self, s: HATSizes, shift: int):
         super().__init__()
@@ -166,7 +160,7 @@ class HAB(nn.Module):
         self.shift = shift
         self.norm1 = nn.LayerNorm(dim)
         self.attn = _WindowAttention(dim, s.window, s.heads)
-        self.conv_block = _CAB(dim, s.compress_ratio, s.squeeze_factor)
+        self.conv_block = CAB(dim, s.compress_ratio, s.squeeze_factor)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = _Mlp(dim, int(dim * s.mlp_ratio))
 
@@ -199,12 +193,6 @@ class RHAG(nn.Module):
         self.conv = nn.Conv2d(s.embed_dim, s.embed_dim, 3, 1, 1)
 
 
-class _PatchEmbed(nn.Module):
-    def __init__(self, dim: int):
-        super().__init__()
-        self.norm = nn.LayerNorm(dim)
-
-
 def released_index_buffers(window: int, key_window: int) -> Dict[str, np.ndarray]:
     """The two index buffers a released state dict carries, as
     ``calculate_rpi_sa`` / ``calculate_rpi_oca`` make them."""
@@ -221,17 +209,11 @@ class HAT(nn.Module):
         self.cfg, self.sizes = cfg, s
         dim, nf = s.embed_dim, s.num_feat
         self.conv_first = nn.Conv2d(s.colors, dim, 3, 1, 1)
-        self.patch_embed = _PatchEmbed(dim)
+        self.patch_embed = PatchEmbed(dim)
         self.layers = nn.ModuleList([RHAG(s) for _ in range(s.groups)])
         self.norm = nn.LayerNorm(dim)
         self.conv_after_body = nn.Conv2d(dim, dim, 3, 1, 1)
-        self.conv_before_upsample = nn.Sequential(nn.Conv2d(dim, nf, 3, 1, 1),
-                                                  nn.LeakyReLU(inplace=True))
-        ups = []
-        for _ in range(int(math.log2(s.scale))):
-            ups += [nn.Conv2d(nf, 4 * nf, 3, 1, 1), nn.PixelShuffle(2)]
-        self.upsample = nn.Sequential(*ups)
-        self.conv_last = nn.Conv2d(nf, 3, 3, 1, 1)
+        add_pixelshuffle_tail(self, dim, nf, s.scale)
         for name, idx in released_index_buffers(s.window, s.key_window).items():
             self.register_buffer(name, torch.tensor(idx))
 
@@ -282,100 +264,42 @@ def load_hat_state_dict(model: HAT, sd: Dict[str, Any]) -> HAT:
     return model
 
 
-def release_state_dict(model: HAT) -> Dict[str, torch.Tensor]:
-    """The model as the release writes it, on the CPU (``{"params_ema":
-    this}`` is a ``.pth``)."""
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-
-
-def release_params(ckpt: Any) -> Dict[str, Any]:
-    """The state dict inside a loaded ``.pth``: ``params_ema``, else
-    ``params``, else the dict itself."""
-    if isinstance(ckpt, dict):
-        for key in ("params_ema", "params"):
-            if key in ckpt:
-                return ckpt[key]
-    return ckpt
-
-
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 
-def _rgb_mean(rgb_mean) -> np.ndarray:
-    return np.asarray(rgb_mean, np.float32)
-
-
-def _params(mod: nn.Module, dtype):
-    """The module's weight and bias in ``dtype``: themselves where they are
-    (the f32 path), else copies kept on the module (``numerics.prepared``)."""
-    if mod.weight.dtype == dtype:
-        return mod.weight, mod.bias
-    return prepared(mod, "wb", dtype, (mod.weight, mod.bias), lambda w, b: (w, b))
-
-
-def _linear(mod: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.linear(x, *_params(mod, dtype))
-
-
-def _conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """3x3 (zero pad 1) or 1x1 conv of NHWC ``x``; the weight kept as a
-    channels-last OIHW view, so cuDNN runs NHWC without a relayout."""
-    if dtype != mod.weight.dtype:
-        w, b = prepared(mod, "wb", dtype, (mod.weight, mod.bias),
-                        lambda w, b: (w.permute(0, 2, 3, 1), b))
-        w = w.permute(0, 3, 1, 2)
-    else:
-        w, b = mod.weight, mod.bias
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=mod.padding)
-    return y.permute(0, 2, 3, 1)
-
-
-def _ln(mod: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.layer_norm(x, mod.normalized_shape, *_params(mod, dtype), mod.eps)
-
-
 def _mlp(mlp: _Mlp, x: torch.Tensor, dtype) -> torch.Tensor:
-    return _linear(mlp.fc2, F.gelu(_linear(mlp.fc1, x, dtype)), dtype)
-
-
-def _cab(cab: _CAB, x: torch.Tensor, dtype) -> torch.Tensor:
-    c0, _, c2, ca = cab.cab
-    y = _conv(c2, F.gelu(_conv(c0, x, dtype)), dtype)
-    sq, ex = ca.attention[1], ca.attention[3]
-    m = y.mean(dim=(1, 2), keepdim=True)  # (B, 1, 1, C): the per-image channel means
-    m = torch.sigmoid(_conv(ex, torch.relu(_conv(sq, m, dtype)), dtype))
-    return y * m
+    return linear(mlp.fc2, F.gelu(linear(mlp.fc1, x, dtype)), dtype)
 
 
 def _qkv(mod: nn.Module, x: torch.Tensor, dtype):
-    qkv = _linear(mod.qkv, x, dtype)
+    qkv = linear(mod.qkv, x, dtype)
     c = qkv.shape[-1] // 3
     return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
 
 
 def hab_apply(blk: HAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
-    xn = _ln(blk.norm1, x, dt)
+    xn = layer_norm(blk.norm1, x, dt)
     q, k, v = _qkv(blk.attn, xn, dt)
     table = blk.attn.relative_position_bias_table
     if policy.kernels:
         a = hat_attn.window_attention_16(q, k, v, table, s.heads, blk.shift, window=s.window)
     else:
         a = window_attention_plain(q, k, v, table, s.heads, s.window, blk.shift)
-    x = x + _linear(blk.attn.proj, a, dt) + _cab(blk.conv_block, xn, dt) * s.conv_scale
-    return x + _mlp(blk.mlp, _ln(blk.norm2, x, dt), dt)
+    x = x + linear(blk.attn.proj, a, dt) + cab_apply(blk.conv_block, xn, dt, s.conv_scale)
+    return x + _mlp(blk.mlp, layer_norm(blk.norm2, x, dt), dt)
 
 
 def ocab_apply(blk: OCAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
-    q, k, v = _qkv(blk, _ln(blk.norm1, x, dt), dt)
+    q, k, v = _qkv(blk, layer_norm(blk.norm1, x, dt), dt)
     attend = (hat_attn.overlap_attention if policy.kernels
               else hat_attn.overlap_attention_plain)
     a = attend(q, k, v, blk.relative_position_bias_table, s.heads, s.window, s.key_window)
-    x = x + _linear(blk.proj, a, dt)
-    return x + _mlp(blk.mlp, _ln(blk.norm2, x, dt), dt)
+    x = x + linear(blk.proj, a, dt)
+    return x + _mlp(blk.mlp, layer_norm(blk.norm2, x, dt), dt)
 
 
 def rhag_apply(grp: RHAG, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
@@ -383,7 +307,7 @@ def rhag_apply(grp: RHAG, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -
     for blk in grp.residual_group.blocks:
         y = hab_apply(blk, y, s, policy)
     y = ocab_apply(grp.residual_group.overlap_attn, y, s, policy)
-    return _conv(grp.conv, y, policy.dtype) + x
+    return conv(grp.conv, y, policy.dtype) + x
 
 
 def hat_apply(model: HAT, x: torch.Tensor, cfg: Config,
@@ -396,15 +320,12 @@ def hat_apply(model: HAT, x: torch.Tensor, cfg: Config,
     s, dt = model.sizes, policy.dtype
     with f32_parity(policy):
         h, w = x.shape[1], x.shape[2]
-        mean = on_device(_rgb_mean, s.rgb_mean, device=x.device)
-        x = ((pad_to_multiple(x.float(), s.window) - mean) * s.img_range).to(dt)
-        feat = _conv(model.conv_first, x, dt)
-        y = _ln(model.patch_embed.norm, feat, dt)
+        mean = rgb_mean(s.rgb_mean, x.device)
+        x = normalised_input(pad_to_multiple(x.float(), s.window), mean, s.img_range, dt)
+        feat = conv(model.conv_first, x, dt)
+        y = layer_norm(model.patch_embed.norm, feat, dt)
         for grp in model.layers:
             y = rhag_apply(grp, y, s, policy)
-        y = _conv(model.conv_after_body, _ln(model.norm, y, dt), dt) + feat
-        y = F.leaky_relu(_conv(model.conv_before_upsample[0], y, dt), 0.01)
-        for conv in model.upsample[::2]:
-            y = pixel_shuffle(_conv(conv, y, dt), 2)
-        y = _conv(model.conv_last, y, dt) / s.img_range + mean.to(dt)
+        y = conv(model.conv_after_body, layer_norm(model.norm, y, dt), dt) + feat
+        y = tail_apply(model, y, mean, s.img_range, dt)
         return y[:, :h * s.scale, :w * s.scale, :]

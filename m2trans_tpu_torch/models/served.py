@@ -14,13 +14,16 @@ import torch
 import torch.nn as nn
 
 from m2trans_tpu_torch.config import Config
-from m2trans_tpu_torch.models.hat import HAT, hat_apply, load_hat_state_dict, release_params
+from m2trans_tpu_torch.models.hat import HAT, hat_apply, load_hat_state_dict
 from m2trans_tpu_torch.models.m2trans import M2Trans, m2trans_apply_microbatched
+from m2trans_tpu_torch.models.mambair import MambaIR, load_mambair_state_dict, mambair_apply
 from m2trans_tpu_torch.models.numerics import ComputePolicy
+from m2trans_tpu_torch.models.sr_blocks import release_params
 from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
 from m2trans_tpu_torch.ops.kernels.hat_attn import overlap_attention, window_attention_16
 from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine
+from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
 from m2trans_tpu_torch.train.convert import load_reference_state_dict
 
@@ -77,6 +80,21 @@ def _load_hat(path, cfg, device):
     return load_hat_state_dict(model.to_empty(device=device or "cpu"), release_params(ckpt))
 
 
+def _mambair_forward(model, x, cfg, policy, output_u8):
+    y = mambair_apply(model, x, cfg, policy)  # not clamped, as released
+    return y.clamp(0.0, 1.0) if output_u8 else y
+
+
+def _load_mambair(path, cfg, device):
+    """A released ``.pth``: ``params``, else ``params_ema``, else a bare
+    state dict."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    with torch.device("meta"):
+        model = MambaIR(cfg)
+    return load_mambair_state_dict(model.to_empty(device=device or "cpu"),
+                                   release_params(ckpt, ("params", "params_ema")))
+
+
 SERVED: Dict[str, ServedModel] = {
     "M2Trans": ServedModel(
         M2Trans, _m2trans_forward,
@@ -88,6 +106,10 @@ SERVED: Dict[str, ServedModel] = {
         HAT, _hat_forward,
         {"hat_wattn": window_attention_16, "hat_oca": overlap_attention},
         row_sharded=False, load=_load_hat),
+    # 36 scan launches a forward at MambaIR_SRx4's depth (one an SS2D)
+    "MambaIR": ServedModel(
+        MambaIR, _mambair_forward, {"ss2d_scan": ss2d_scan},
+        row_sharded=False, load=_load_mambair),
 }
 
 

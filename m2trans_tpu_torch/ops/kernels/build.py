@@ -94,6 +94,8 @@ SIGNATURES = {
                       I, I, I, I, I, I, F, P],     # B H W C heads shift scale stream
     "m2t_hat_oca": [P, P, P, LL, P, P,            # q k v pixel-stride table out
                     I, I, I, I, I, F, P],          # B H W C heads scale stream
+    "m2t_ss2d_scan": [P, P, P, P, P, P, P, P,     # x xdbl dtw dtb A Ds part y
+                      I, I, I, I, I, P],           # B H W D R stream
 }
 
 _lock = threading.Lock()

@@ -1712,3 +1712,149 @@ def test_hat_infer_cli_on_a_release_pth(dev, tmp_path):
     assert report["cuda_graphs"]["replays"] == 3
     assert sorted(os.listdir(tmp_path / "out")) == ["0.png", "1.png", "2.png"]
     assert np.asarray(Image.open(tmp_path / "out" / "0.png")).shape == (240, 300, 3)
+
+
+# SS2D's scan kernel against its plain version: one bf16 rounding step of the
+# largest output at most (both compute in f32 and differ in the last bits:
+# the hardware exp2 and log2, another order of the sums), and the mean under
+# 1e-5 of it (almost no element rounds the other way)
+SCAN_TOL = (4e-3, 1e-5)
+# (batch, H, W, d_inner, R): a request at the published widths; a frame
+# that is not square (a swapped transpose shows) and no multiple of the
+# kernel's 64-position tile; narrower maps with R = 8, 16
+SCAN_CASES = [(8, 96, 96, 360, 12), (2, 37, 53, 360, 12), (1, 21, 6, 72, 8),
+              (1, 9, 11, 24, 16)]
+
+
+def _scan_case(dev, b, h, w, d, rank, seed=0):
+    """bf16 x and projections, f32 tables of no special structure."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, h, w, d, generator=g) * 0.5).bfloat16().to(dev)
+    xdbl = (torch.randn(b, h, w, 4 * (rank + 32), generator=g) * 0.5).bfloat16().to(dev)
+    return (x, xdbl, (torch.randn(4, d, rank, generator=g) * rank ** -0.5).to(dev),
+            (torch.randn(4, d, generator=g) - 3.0).to(dev),
+            (-torch.exp(torch.randn(4, d, 16, generator=g))).to(dev),
+            torch.randn(4, d, generator=g).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_ss2d_scan_matches_plain(dev, case):
+    """The four-way scan kernel against its plain version on the same card
+    tensors, a second call bit for bit, one launch a call."""
+    from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan, ss2d_scan_plain
+
+    args = _scan_case(dev, *case)
+    n0 = ss2d_scan.launches
+    with torch.no_grad():
+        got = ss2d_scan(*args)
+        torch.cuda.synchronize()
+        again = ss2d_scan(*args)
+        want = ss2d_scan_plain(*args)
+    assert ss2d_scan.launches == n0 + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == case[:4]
+    assert torch.equal(got, again)
+    d = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    assert float(d.max()) <= SCAN_TOL[0] * top, float(d.max())
+    assert float(d.mean()) <= SCAN_TOL[1] * top, float(d.mean())
+
+
+@pytest.mark.cuda
+def test_ss2d_scan_refuses_what_it_does_not_take(dev):
+    from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan
+
+    x, xdbl, dt_w, dt_b, a, ds = _scan_case(dev, 1, 8, 8, 48, 4)
+    with pytest.raises(ValueError, match="bf16"):
+        ss2d_scan(x.float(), xdbl, dt_w, dt_b, a, ds)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ss2d_scan(x, xdbl.view(1, 8, 8, 4, 36)[..., :34].contiguous(), dt_w[..., :2].contiguous(),
+                  dt_b, a, ds)
+    with pytest.raises(ValueError, match="forward only"):
+        ss2d_scan(x, xdbl, dt_w.requires_grad_(True), dt_b, a, ds)
+
+
+def _mambair_cfg():
+    import os
+
+    from m2trans_tpu_torch.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(os.path.join(root, "m2trans_tpu_torch", "configs", "MambaIR_SRx4.yml"))
+
+
+@pytest.mark.cuda
+def test_mambair_graphed_forward_launches_and_bits(dev):
+    """MambaIR_SRx4 at its published widths (the release init): the serving
+    forward replayed from a CUDA graph equals the eager forward bit for bit,
+    its capture counts 36 scan launches, it stays near the plain bf16
+    forward (the scan's plain version, by name); M2Trans's and HAT's
+    forwards launch no scan."""
+    from m2trans_tpu_torch.models.hat import init_hat
+    from m2trans_tpu_torch.models.mambair import init_mambair, mambair_apply
+    from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan
+
+    cfg = _mambair_cfg()
+    model = init_mambair(cfg, seed=1, device=dev)
+    policy = ComputePolicy(torch.bfloat16, True)
+    x = torch.rand(2, 64, 80, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    gf = GraphedForward(model, cfg, policy)
+    got = gf(x).clone()
+    assert gf.capture_launches[tuple(x.shape)] == {"ss2d_scan": 36}
+    with torch.inference_mode():
+        want = serving_forward(model, x, cfg, policy, False)
+        plain = mambair_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
+    assert got.shape == (2, 256, 320, 3) and torch.equal(got, want)
+    assert torch.equal(gf(x), want)
+    assert float((got - plain).abs().mean()) < 2e-3
+    n0 = ss2d_scan.launches
+    small = Config(scale=4, n_feats=64, n_blocks=1, num_heads=4, dtype="bfloat16",
+                   use_pallas=True)
+    hat_cfg = _hat_cfg()
+    with torch.inference_mode():
+        serving_forward(init_m2trans(small, seed=0, device=dev), x[:1, :32, :32], small, policy,
+                        False)
+        serving_forward(init_hat(hat_cfg, seed=0, device=dev), x[:1, :32, :32], hat_cfg, policy,
+                        False)
+    assert ss2d_scan.launches == n0
+
+
+@pytest.mark.cuda
+def test_mambair_infer_cli_on_a_release_pth(dev, tmp_path):
+    """``python -m m2trans_tpu_torch.infer`` with the MambaIR yml and a
+    seeded ``.pth`` in the release layout (``params``): graphs with 36
+    launches a capture, PNGs of 4x frames, and nothing of jax or the JAX
+    package loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from m2trans_tpu_torch.models.mambair import init_mambair
+    from m2trans_tpu_torch.models.sr_blocks import release_state_dict
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.save({"params": release_state_dict(init_mambair(_mambair_cfg(), seed=5))},
+               tmp_path / "MambaIR_SR_x4.pth")
+    src = tmp_path / "frames"
+    src.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (60, 75, 3), dtype=np.uint8)).save(src / f"{i}.png")
+    argv = ["infer", "--config", os.path.join(root, "m2trans_tpu_torch", "configs",
+                                              "MambaIR_SRx4.yml"),
+            "--model_path", str(tmp_path / "MambaIR_SR_x4.pth"), "--input", str(src),
+            "--output", str(tmp_path / "out")]
+    code = ("import runpy, sys; sys.argv = %r; runpy.run_module('m2trans_tpu_torch.infer', "
+            "run_name='__main__'); bad = sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'm2trans_tpu'}); print('LOADED ' + ','.join(bad))" % argv)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1].strip() == "LOADED"
+    report = json.loads(lines[-2])
+    assert report["cuda_graphs"]["launches_per_capture"] == {"1x60x75x3": {"ss2d_scan": 36}}
+    assert report["cuda_graphs"]["replays"] == 3
+    assert sorted(os.listdir(tmp_path / "out")) == ["0.png", "1.png", "2.png"]
+    assert np.asarray(Image.open(tmp_path / "out" / "0.png")).shape == (240, 300, 3)
