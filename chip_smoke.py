@@ -72,7 +72,7 @@ version's and masked ``scaled_dot_product_attention``'s, MedCLIP's parts
 and the x2 recipe step with the kernels and with the plain attention; then
 (phase 33) HAT x4's attention kernels (``csrc/hat_attn.cu``) against their
 plain versions at a request's shape, their device times beside their bound,
-HAT_SRx4 through the graphed serving forward (36 + 6 launches a capture,
+HAT_SRx4 through the graphed serving forward (36 + 6 + 86 launches a capture,
 replay against eager) and the infer CLI on a seeded ``.pth``. Phase 34,
 which runs right after phase 16 (later in the run the profiler records
 none of the kernels' own launches), holds the CFTM's instance-norm
@@ -82,8 +82,12 @@ device times (read from HBM and L2-warm) beside their bound and the plain
 version's. Phase 35, right after phase 34, holds MambaIR x4's
 four-way scan (``csrc/ss2d_scan.cu``) against its plain version at a
 request's shape and on a frame that is not square, its device time beside
-its bound, MambaIR_SRx4 through the graphed serving forward (36 launches a
-capture, replay against eager) and the infer CLI on a seeded ``.pth``. The
+its bound, MambaIR_SRx4 through the graphed serving forward (36 + 110
+launches a capture, replay against eager) and the infer CLI on a seeded ``.pth``.
+Phase 36, right after phase 35, holds HAT's and MambaIR's LayerNorm kernel
+(``csrc/row_norm.cu``) against its plain version in each form at a
+request's shape and gives its device time read from HBM beside its bound
+and the plain version's. The
 CLIs and Trainers of one process (phases 6, 11, 15, 17, 21) replay graphs, as users
 run them on one card; the steps whose launches are counted or held against
 the plain step (phases 7, 10, 17) run eagerly (``graphs=False``). Every
@@ -2563,7 +2567,7 @@ HAT_BATCH = 8  # phase 33: the hat-x4-serve-b8 request, 8 x 96^2
 HAT_TOL = (2e-3, 2e-2)
 
 
-def hat_phase(dev) -> list:
+def hat_phase(dev) -> tuple:
     """Phase 33, HAT x4 (``models/hat.py``) and its attention kernels
     (``csrc/hat_attn.cu``). At a request's shape (8 x 96^2, 180 channels, 6
     heads, window 16, q, k, v views of one qkv tensor, seeded): SW-MSA at
@@ -2571,10 +2575,12 @@ def hat_phase(dev) -> list:
     bit for bit), device ms (profiler) of each kernel beside its bound
     (each operand once; bytes at 3.35 TB/s or bf16 products at 989 TFLOP/s,
     the larger) and the plain version's. Then HAT_SRx4 at its published widths (seeded
-    init) through ``GraphedForward``: 36 + 6 launches a capture, replay =
+    init) through ``GraphedForward``: 36 + 6 attention and 86 LayerNorm
+    launches a capture, replay =
     eager bit for bit, against the plain bf16 forward, device ms of a
     replay; and the infer CLI on a seeded release-layout ``.pth``. Returns
-    the kernel report's two rows."""
+    the kernel report's two rows and the forward's LayerNorm launches (the
+    capture's count and, counted in the eager forward, each form's)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2630,9 +2636,13 @@ def hat_phase(dev) -> list:
     gf = GraphedForward(model, cfg, policy)
     got = gf(x).clone()
     launches = gf.capture_launches[tuple(x.shape)]
-    need(launches == {"hat_wattn": 36, "hat_oca": 6}, f"phase 33: a capture counted {launches}")
-    with torch.inference_mode():
+    need(launches == {"hat_wattn": 36, "hat_oca": 6, "row_norm": 86},
+         f"phase 33: a capture counted {launches}")
+    with torch.inference_mode(), row_norm_forms() as forms:
         want = serving_forward(model, x, cfg, policy, False)
+    need(sum(forms.values()) == launches["row_norm"],
+         f"phase 33: the eager forward's LayerNorm launches {dict(forms)}")
+    with torch.inference_mode():
         plain = hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
     need(torch.equal(got, want), f"phase 33: replay vs eager max {errs(got, want)[0]}")
     vs_plain = float((got - plain).abs().mean())
@@ -2640,8 +2650,8 @@ def hat_phase(dev) -> list:
     fwd_ms = device_ms(lambda: gf(x))
     plain_fwd_ms = device_ms(lambda: hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16,
                                                                              False)))
-    print(f"## phase 33 HAT_SRx4 8x96^2: capture {launches}; replay = eager; vs plain bf16 "
-          f"mean {vs_plain:.3g}; device ms replay {fmt_ms(fwd_ms)}, plain attention "
+    print(f"## phase 33 HAT_SRx4 8x96^2: capture {launches}; LayerNorm forms {dict(forms)}; "
+          f"replay = eager; vs plain bf16 mean {vs_plain:.3g}; device ms replay {fmt_ms(fwd_ms)}, plain attention "
           f"{fmt_ms(plain_fwd_ms)} ##")
 
     # the infer CLI on a seeded release-layout .pth
@@ -2662,13 +2672,15 @@ def hat_phase(dev) -> list:
     need(res.returncode == 0, f"phase 33 infer CLI: {res.stderr[-4000:]}")
     report = json.loads(res.stdout.strip().splitlines()[-1])
     need(report["cuda_graphs"]["launches_per_capture"] == {
-        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6}}, f"phase 33 infer CLI: {report}")
+        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6, "row_norm": 86}},
+        f"phase 33 infer CLI: {report}")
     print(f"## phase 33 infer CLI: {json.dumps(report)}; phase 33 in "
           f"{time.perf_counter() - t0:.1f} s ##")
     csrc = "m2trans_tpu_torch/csrc/hat_attn.cu"
     sw = {key: (None if None in (rows[0][key], rows[8][key]) else
                 18 * rows[0][key] + 18 * rows[8][key])
           for key in ("bound_ms", "device_ms", "plain_ms")}
+    norms = {"launches_graph_capture": launches["row_norm"], "by_form": dict(forms)}
     return [
         {"name": "hat_wattn", "route": "cuda", "source": csrc, "replaces": None,
          "launches_graph_capture": launches["hat_wattn"],
@@ -2681,12 +2693,39 @@ def hat_phase(dev) -> list:
          "max_rel_err": rows["oca"]["max_rel_err"], "bound_by": rows["oca"]["bound_by"],
          **{key: None if rows["oca"][key] is None else 6 * rows["oca"][key]
             for key in ("bound_ms", "device_ms", "plain_ms")},
-         "library_ms": None, "per_launch": rows["oca"]}]
+         "library_ms": None, "per_launch": rows["oca"]}], norms
 
 
 IN_STATS_SHAPES = ((8, 96, 96, 64), (1, 512, 512, 64), (1, 256, 256, 64))
 IN_STATS_RTOL = 1e-5  # the kernel's s and t vs its plain version's
 L2_FLUSH_BYTES = 256 * 2 ** 20  # five times the H100's 50 MB L2
+
+
+def hbm_device_ms(fn, flush, label, n=20, warm=3) -> dict:
+    """Device ms a call of ``fn`` by ``label(kernel name)`` (kernels it
+    maps to None are left out), each call after a read of ``flush``, which
+    leaves the L2 holding clean lines of it and none of ``fn``'s operands;
+    a label the profiler records no device time for reads None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from m2trans_tpu_torch.tools.timing import is_device_work
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for ev in prof.key_averages():
+        key = label(ev.key) if is_device_work(ev) else None
+        if key is not None:
+            t = getattr(ev, "device_time_total", None)
+            us[key] = us.get(key, 0.0) + (ev.cuda_time_total if t is None else t)
+    return {k: v / 1e3 / n if v else None for k, v in us.items()}
 
 
 def in_stats_phase(dev) -> dict:
@@ -2703,34 +2742,18 @@ def in_stats_phase(dev) -> dict:
     Returns the kernel report's row, its headline at 1 x 512^2."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine, in_stats_affine_plain
-    from m2trans_tpu_torch.tools.timing import is_device_work
     from m2trans_tpu_torch.utils.roofline import bound, nbytes
 
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    kernels = ("in_stats_sum_kernel", "in_stats_finish_kernel")
 
-    def cold_ms(fn, n=20, warm=3):
+    def cold_ms(fn):
         """Device ms of the statistics' two kernels (sums, finish) in one
-        call of ``fn``, each call after a read of ``flush`` (which leaves the
-        L2 holding clean lines of it, none of x); (None, None) where the
-        profiler records no device time."""
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                flush.sum()
-                fn()
-            torch.cuda.synchronize()
-        us = {"in_stats_sum_kernel": 0.0, "in_stats_finish_kernel": 0.0}
-        for ev in prof.key_averages():
-            for key in us:
-                if is_device_work(ev) and key in ev.key:
-                    t = getattr(ev, "device_time_total", None)
-                    us[key] += ev.cuda_time_total if t is None else t
-        return tuple(v / 1e3 / n if v else None for v in us.values())
+        call of ``fn``, x read from HBM; None where not measured."""
+        ms = hbm_device_ms(fn, flush, lambda k: next((s for s in kernels if s in k), None))
+        return tuple(ms.get(s) for s in kernels)
 
     t0 = time.perf_counter()
     rows = {}
@@ -2780,7 +2803,7 @@ MAMBAIR_BATCH = 8  # phase 35: the mambair-x4-serve-b8 request, 8 x 96^2
 SCAN_TOL = (4e-3, 1e-5)
 
 
-def mambair_phase(dev) -> dict:
+def mambair_phase(dev) -> tuple:
     """Phase 35, MambaIR x4 (``models/mambair.py``) and SS2D's four-way scan
     (``csrc/ss2d_scan.cu``). The kernel against its plain version at d_inner
     360, N 16, R 12 on a request's shape (8 x 96^2) and on a frame that is
@@ -2789,9 +2812,12 @@ def mambair_phase(dev) -> dict:
     launch beside its bound (6 FP32 operations a state update at 67
     TFLOP/s, or x, the projections and y at 3.35 TB/s, the larger) and the
     plain version's. Then MambaIR_SRx4 at its published widths (the release
-    init) through ``GraphedForward``: 36 launches a capture, replay = eager,
+    init) through ``GraphedForward``: 36 scan and 110 LayerNorm launches a
+    capture, replay = eager,
     against the plain bf16 forward, device ms of a replay; and the infer CLI
-    on a seeded release-layout ``.pth``. Returns the kernel report's row."""
+    on a seeded release-layout ``.pth``. Returns the kernel report's row and
+    the forward's LayerNorm launches (the capture's count and, counted in
+    the eager forward, each form's)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2850,16 +2876,20 @@ def mambair_phase(dev) -> dict:
     gf = GraphedForward(model, cfg, policy)
     got = gf(x).clone()
     launches = gf.capture_launches[tuple(x.shape)]
-    need(launches == {"ss2d_scan": 36}, f"phase 35: a capture counted {launches}")
-    with torch.inference_mode():
+    need(launches == {"ss2d_scan": 36, "row_norm": 110},
+         f"phase 35: a capture counted {launches}")
+    with torch.inference_mode(), row_norm_forms() as forms:
         want = serving_forward(model, x, cfg, policy, False)
+    need(sum(forms.values()) == launches["row_norm"],
+         f"phase 35: the eager forward's LayerNorm launches {dict(forms)}")
+    with torch.inference_mode():
         plain = mambair_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
     need(torch.equal(got, want), f"phase 35: replay vs eager max {errs(got, want)[0]}")
     vs_plain = float((got - plain).abs().mean())
     need(vs_plain < 2e-3, f"phase 35: kernel vs plain bf16 forward mean {vs_plain:.3g}")
     fwd_ms = device_ms(lambda: gf(x), n=5)
-    print(f"## phase 35 MambaIR_SRx4 8x96^2: capture {launches}; replay = eager; vs plain bf16 "
-          f"mean {vs_plain:.3g}; device ms a replay {fmt_ms(fwd_ms)} ##")
+    print(f"## phase 35 MambaIR_SRx4 8x96^2: capture {launches}; LayerNorm forms "
+          f"{dict(forms)}; replay = eager; vs plain bf16 mean {vs_plain:.3g}; device ms a replay {fmt_ms(fwd_ms)} ##")
 
     # the infer CLI on a seeded release-layout .pth
     work = os.path.join(ROOT, "build", "chip_smoke", "mambair")
@@ -2877,7 +2907,8 @@ def mambair_phase(dev) -> dict:
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     need(res.returncode == 0, f"phase 35 infer CLI: {res.stderr[-4000:]}")
     report = json.loads(res.stdout.strip().splitlines()[-1])
-    need(report["cuda_graphs"]["launches_per_capture"] == {"1x60x75x3": {"ss2d_scan": 36}},
+    need(report["cuda_graphs"]["launches_per_capture"] == {
+        "1x60x75x3": {"ss2d_scan": 36, "row_norm": 110}},
          f"phase 35 infer CLI: {report}")
     print(f"## phase 35 infer CLI: {json.dumps(report)}; phase 35 in "
           f"{time.perf_counter() - t0:.1f} s ##")
@@ -2885,7 +2916,137 @@ def mambair_phase(dev) -> dict:
     return {"name": "ss2d_scan", "route": "cuda", "source": "m2trans_tpu_torch/csrc/ss2d_scan.cu",
             "replaces": None, "launches_graph_capture": launches["ss2d_scan"],
             "shape": f"{MAMBAIR_BATCH}x96x96x360", **head, "library_ms": None,
-            "by_shape": rows, "mambair_forward_device_ms": fwd_ms}
+            "by_shape": rows, "mambair_forward_device_ms": fwd_ms}, {
+                "launches_graph_capture": launches["row_norm"], "by_form": dict(forms)}
+
+
+# phase 36: the LayerNorm kernel's forms at the served maps' shapes, (form,
+# C): the stems', the bodies' and the blocks' first norms plain; HAB and
+# OCAB norm2 take in the residual, MambaIR's ln_2 the scaled residual, its
+# out_norm the gate
+ROW_NORM_FORMS = (("plain", 180), ("residual", 180), ("scaled", 180), ("gated", 360))
+
+
+@contextlib.contextmanager
+def row_norm_forms():
+    """While open, counts the LayerNorm kernel's launches from the models'
+    ``layer_norm`` by form and C, under ``ROW_NORM_FORMS``' names ("plain
+    180", ...)."""
+    from m2trans_tpu_torch.models import sr_blocks
+
+    wrapped, seen = sr_blocks.row_norm, {}
+
+    def counting(x, *args, **kw):
+        form = ("gated" if kw.get("gate") is not None else "plain" if kw.get("add") is None
+                else "residual" if kw.get("scale") is None else "scaled")
+        n0 = wrapped.launches
+        out = wrapped(x, *args, **kw)
+        key = f"{form} {x.shape[-1]}"
+        seen[key] = seen.get(key, 0) + wrapped.launches - n0
+        return out
+
+    sr_blocks.row_norm = counting
+    try:
+        yield seen
+    finally:
+        sr_blocks.row_norm = wrapped
+
+
+def row_norm_phase(dev) -> dict:
+    """Phase 36, HAT's and MambaIR's LayerNorm (``csrc/row_norm.cu``) at a
+    request's shape, 8 x 96^2 rows, seeded bf16 operands, in each form: the
+    kernel against its plain version (the torch composition it replaces,
+    ``F.layer_norm`` and the elementwise passes it takes in, which is also
+    the library yardstick) on the same card tensors, the residual sum bit
+    for bit, the normed rows within one bf16 step (the gated ones two; of
+    2^-8 where the result is smaller), a
+    second call the same bits, one launch a call; device ms of the kernel
+    and of the plain version, each call after a 256 MB read so that the
+    rows come from HBM, the kernel's also L2-warm; the bound (the maps read
+    and written, bf16, at 3.35 TB/s). Returns each form's row."""
+    import torch
+
+    from m2trans_tpu_torch.ops.kernels.row_norm import row_norm, row_norm_plain
+    from m2trans_tpu_torch.utils.roofline import bound, nbytes
+
+    t0 = time.perf_counter()
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rows = {}
+    for form, c in ROW_NORM_FORMS:
+        g = torch.Generator().manual_seed(36 + c)
+        shape = (HAT_BATCH, 96, 96, c)
+        x = (torch.randn(shape, generator=g) * 1.5 + torch.randn(c, generator=g)).bfloat16()
+        other = (torch.randn(shape, generator=g) * 2.0).bfloat16()
+        vecs = [(1.0 + 0.1 * torch.randn(c, generator=g)).bfloat16() for _ in range(3)]
+        x, other = x.to(dev), other.to(dev)
+        scale, w, b = (v.to(dev) for v in vecs)
+        kw = {"plain": {}, "residual": {"add": other}, "scaled": {"add": other, "scale": scale},
+              "gated": {"gate": other}}[form]
+        name = f"{form} {c}"
+        with torch.inference_mode():
+            n0 = row_norm.launches
+            got, again = row_norm(x, w, b, 1e-5, **kw), row_norm(x, w, b, 1e-5, **kw)
+            want = row_norm_plain(x, w, b, 1e-5, **kw)
+            need(row_norm.launches == n0 + 2,
+                 f"phase 36 {name}: {row_norm.launches - n0} launches for two calls")
+            outs = got if isinstance(got, tuple) else (got,)
+            if "add" in kw:
+                need(torch.equal(got[0], want[0]), f"phase 36 {name}: the residual sum differs")
+                got, again, want = got[1], again[1], want[1]
+            need(torch.equal(got, again), f"phase 36 {name}: two calls differ")
+            d = (got.float() - want.float()).abs()
+            # in bf16 steps of |want|, or of 2^-8 where |want| is smaller (the
+            # norm's term and beta cancel there: tests/test_torch_port_cuda.py)
+            step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2 ** -8))) - 7)
+            worst = float((d / step).max())
+            differ = float((d > 0).float().mean())
+            need(worst <= (2 if form == "gated" else 1),
+                 f"phase 36 {name}: kernel vs plain {worst:.3g} bf16 steps")
+            bnd = bound(nbytes(x, *kw.values(), w, b, *outs), 0.0)
+            ms = hbm_device_ms(lambda: row_norm(x, w, b, 1e-5, **kw), flush,
+                               lambda k: "kernel" if "row_norm_kernel" in k else None)
+            plain = hbm_device_ms(lambda: row_norm_plain(x, w, b, 1e-5, **kw), flush,
+                                  lambda k: None if "reduce_kernel" in k else "plain")
+            rows[name] = {"max_bf16_steps": worst, "share_differing": differ, **bnd,
+                          "device_ms": ms.get("kernel"),
+                          "device_ms_l2_warm": device_ms(lambda: row_norm(x, w, b, 1e-5, **kw)),
+                          "plain_ms": plain.get("plain")}
+        r = rows[name]
+        share = (f"{100 * bnd['bound_ms'] / r['device_ms']:.1f}%" if r["device_ms"]
+                 else "not measured")
+        print(f"## phase 36 row_norm {name} 8x96^2: {worst:.3g} bf16 steps from plain "
+              f"({100 * differ:.3f}% of elements differ); device "
+              f"ms {fmt_ms(r['device_ms'])} from HBM ({share} of the bound "
+              f"{bnd['bound_ms']:.5f}), {fmt_ms(r['device_ms_l2_warm'])} L2-warm; plain = "
+              f"library {fmt_ms(r['plain_ms'])} ##")
+    del flush
+    print(f"## phase 36 in {time.perf_counter() - t0:.1f} s ##")
+    return rows
+
+
+def row_norm_report(rows, norms) -> dict:
+    """The kernel report's ``row_norm`` row: phase 36's forms (``rows``) and,
+    for HAT's and MambaIR's forward, the launches that phases 33 and 35
+    counted (``norms``: the capture's and each form's) and the sums of each
+    form's launches times phase 36's ms a launch."""
+
+    def per_forward(by_form, key):
+        need(set(by_form) <= set(rows), f"phase 36 times no launch of the forms {by_form}")
+        if any(rows[f][key] is None for f in by_form):
+            return None
+        return sum(n * rows[f][key] for f, n in by_form.items())
+
+    forward = {m: {key: per_forward(n["by_form"], key)
+                   for key in ("bound_ms", "device_ms", "plain_ms")} for m, n in norms.items()}
+    print(f"## phase 36 a forward's LayerNorms (ms, from HBM, phases 33 and 35's launches by "
+          f"form): {json.dumps(forward)} ##")
+    head = rows["plain 180"]
+    return {"name": "row_norm", "route": "cuda", "source": "m2trans_tpu_torch/csrc/row_norm.cu",
+            "replaces": None,
+            "launches_graph_capture": {m: n["launches_graph_capture"] for m, n in norms.items()},
+            "launches_by_form": {m: n["by_form"] for m, n in norms.items()},
+            "shape": f"{HAT_BATCH}x96x96x180", **head, "library_ms": head["plain_ms"],
+            "by_form": rows, "per_forward": forward}
 
 
 def run() -> dict:
@@ -3580,7 +3741,12 @@ def run() -> dict:
     # 35. MambaIR x4: SS2D's scan kernel at a request's shape and a frame
     # that is not square, the graphed serving forward at the published
     # widths, the infer CLI (run here, beside phase 34, for the same reason)
-    mambair_row = mambair_phase(dev)
+    mambair_row, mambair_norms = mambair_phase(dev)
+
+    # 36. HAT's and MambaIR's LayerNorm kernel in each form at a request's
+    # shape, its device times from HBM beside its bound (here, beside phase
+    # 35, for the same reason)
+    row_norm_rows = row_norm_phase(dev)
 
     # 17. the recipe's step with the MedCLIP semantic loss
     semantic_step_phase(dev, tcfg, lr_b, hr_b, loss_k, train_launches, work)
@@ -3628,7 +3794,7 @@ def run() -> dict:
 
     # 33. HAT x4: its attention kernels at a request's shape, the graphed
     # serving forward at the published widths, the infer CLI
-    hat_rows = hat_phase(dev)
+    hat_rows, hat_norms = hat_phase(dev)
 
     need_no_reference_package()
 
@@ -3727,7 +3893,8 @@ def run() -> dict:
          "replaces": None, "launches": launches["in_stats"], **in_stats_row,
          "library_ms": None, "launches_graph_capture": graph_launches["in_stats"],
          "launches_train_graph_capture": train_graph_launches["in_stats"]},
-        swin_row, *hat_rows, mambair_row]}
+        swin_row, *hat_rows, mambair_row,
+        row_norm_report(row_norm_rows, {"HAT": hat_norms, "MambaIR": mambair_norms})]}
 
 
 def main() -> int:

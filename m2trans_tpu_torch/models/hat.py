@@ -35,9 +35,10 @@ Numerics (``ComputePolicy``): f32 is the parity path (TF32 off, the
 attentions' plain versions); bf16 keeps activations and weights in bf16
 (weights laid out once and kept on the modules, ``models/numerics.py``'s
 kept operands) and, with ``use_kernels``, runs the attentions
-through their kernel wrappers (CUDA kernels for CUDA tensors, the plain
-versions for CPU tensors). Forward only: HAT is served, not trained, by
-the port.
+and the LayerNorms through their kernel wrappers (CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors); ``norm2`` takes in the
+residual sum before it (``models/sr_blocks.py::layer_norm``). Forward
+only: HAT is served, not trained, by the port.
 """
 
 from __future__ import annotations
@@ -281,25 +282,26 @@ def _qkv(mod: nn.Module, x: torch.Tensor, dtype):
 
 def hab_apply(blk: HAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
-    xn = layer_norm(blk.norm1, x, dt)
+    xn = layer_norm(blk.norm1, x, policy)
     q, k, v = _qkv(blk.attn, xn, dt)
     table = blk.attn.relative_position_bias_table
     if policy.kernels:
         a = hat_attn.window_attention_16(q, k, v, table, s.heads, blk.shift, window=s.window)
     else:
         a = window_attention_plain(q, k, v, table, s.heads, s.window, blk.shift)
-    x = x + linear(blk.attn.proj, a, dt) + cab_apply(blk.conv_block, xn, dt, s.conv_scale)
-    return x + _mlp(blk.mlp, layer_norm(blk.norm2, x, dt), dt)
+    x, xn = layer_norm(blk.norm2, x + linear(blk.attn.proj, a, dt), policy,
+                       add=cab_apply(blk.conv_block, xn, dt, s.conv_scale))
+    return x + _mlp(blk.mlp, xn, dt)
 
 
 def ocab_apply(blk: OCAB, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
-    q, k, v = _qkv(blk, layer_norm(blk.norm1, x, dt), dt)
+    q, k, v = _qkv(blk, layer_norm(blk.norm1, x, policy), dt)
     attend = (hat_attn.overlap_attention if policy.kernels
               else hat_attn.overlap_attention_plain)
     a = attend(q, k, v, blk.relative_position_bias_table, s.heads, s.window, s.key_window)
-    x = x + linear(blk.proj, a, dt)
-    return x + _mlp(blk.mlp, layer_norm(blk.norm2, x, dt), dt)
+    x, xn = layer_norm(blk.norm2, x, policy, add=linear(blk.proj, a, dt))
+    return x + _mlp(blk.mlp, xn, dt)
 
 
 def rhag_apply(grp: RHAG, x: torch.Tensor, s: HATSizes, policy: ComputePolicy) -> torch.Tensor:
@@ -323,9 +325,9 @@ def hat_apply(model: HAT, x: torch.Tensor, cfg: Config,
         mean = rgb_mean(s.rgb_mean, x.device)
         x = normalised_input(pad_to_multiple(x.float(), s.window), mean, s.img_range, dt)
         feat = conv(model.conv_first, x, dt)
-        y = layer_norm(model.patch_embed.norm, feat, dt)
+        y = layer_norm(model.patch_embed.norm, feat, policy)
         for grp in model.layers:
             y = rhag_apply(grp, y, s, policy)
-        y = conv(model.conv_after_body, layer_norm(model.norm, y, dt), dt) + feat
+        y = conv(model.conv_after_body, layer_norm(model.norm, y, policy), dt) + feat
         y = tail_apply(model, y, mean, s.img_range, dt)
         return y[:, :h * s.scale, :w * s.scale, :]

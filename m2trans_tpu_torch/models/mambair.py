@@ -48,9 +48,11 @@ gate, each product's output and the residual sums. It does not round
 inside the scan: delta (softplus of dt_proj), the state h and the sum of
 the four directions are f32, and y is rounded once, after that sum. The
 scan's tables (dt_proj's weight and bias, A = -exp(A_log), D) stay f32. With
-``use_kernels`` the scan runs through its kernel wrapper (the CUDA kernel
-for CUDA tensors, its plain version for CPU tensors). Forward only: MambaIR
-is served, not trained, by the port.
+``use_kernels`` the scan and the LayerNorms run through their kernel
+wrappers (the CUDA kernels for CUDA tensors, the plain versions for CPU
+tensors); ``ln_2`` takes in the scaled residual sum before it and
+``out_norm`` the gate after it (``models/sr_blocks.py::layer_norm``).
+Forward only: MambaIR is served, not trained, by the port.
 """
 
 from __future__ import annotations
@@ -278,7 +280,7 @@ def ss2d_apply(mod: SS2D, h: torch.Tensor, policy: ComputePolicy) -> torch.Tenso
     xdbl = F.linear(x, wp)  # (B, H, W, 4 (R + 2N)): every direction's projections
     scan = ss2d_scan if policy.kernels else ss2d_scan_plain
     y = scan(x, xdbl, *_scan_tables(mod))
-    return linear(mod.out_proj, layer_norm(mod.out_norm, y, dt) * F.silu(z), dt)
+    return linear(mod.out_proj, layer_norm(mod.out_norm, y, policy, gate=z), dt)
 
 
 def _skip(blk: VSSBlock, dtype):
@@ -290,8 +292,9 @@ def _skip(blk: VSSBlock, dtype):
 def vss_apply(blk: VSSBlock, u: torch.Tensor, policy: ComputePolicy) -> torch.Tensor:
     dt = policy.dtype
     s1, s2 = _skip(blk, dt)
-    x = u * s1 + ss2d_apply(blk.self_attention, layer_norm(blk.ln_1, u, dt), policy)
-    return x * s2 + cab_apply(blk.conv_blk, layer_norm(blk.ln_2, x, dt), dt)
+    x, xn = layer_norm(blk.ln_2, u, policy, scale=s1,
+                       add=ss2d_apply(blk.self_attention, layer_norm(blk.ln_1, u, policy), policy))
+    return x * s2 + cab_apply(blk.conv_blk, xn, dt)
 
 
 def rssg_apply(grp: RSSG, x: torch.Tensor, policy: ComputePolicy) -> torch.Tensor:
@@ -311,8 +314,8 @@ def mambair_apply(model: MambaIR, x: torch.Tensor, cfg: Config,
     with f32_parity(policy):
         mean = rgb_mean(s.rgb_mean, x.device)
         feat = conv(model.conv_first, normalised_input(x, mean, s.img_range, dt), dt)
-        y = layer_norm(model.patch_embed.norm, feat, dt)
+        y = layer_norm(model.patch_embed.norm, feat, policy)
         for grp in model.layers:
             y = rssg_apply(grp, y, policy)
-        y = conv(model.conv_after_body, layer_norm(model.norm, y, dt), dt) + feat
+        y = conv(model.conv_after_body, layer_norm(model.norm, y, policy), dt) + feat
         return tail_apply(model, y, mean, s.img_range, dt)

@@ -23,6 +23,7 @@ from m2trans_tpu_torch.ops.kernels.ff_conv import ff_conv
 from m2trans_tpu_torch.ops.kernels.halo_attn import cftm_branch
 from m2trans_tpu_torch.ops.kernels.hat_attn import overlap_attention, window_attention_16
 from m2trans_tpu_torch.ops.kernels.in_stats import in_stats_affine
+from m2trans_tpu_torch.ops.kernels.row_norm import row_norm
 from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan
 from m2trans_tpu_torch.ops.kernels.tail_band import tail_band_fused
 from m2trans_tpu_torch.train.convert import load_reference_state_dict
@@ -101,14 +102,17 @@ SERVED: Dict[str, ServedModel] = {
         {"cftm_branch": cftm_branch, "ff_conv": ff_conv, "tail_band": tail_band_fused,
          "in_stats": in_stats_affine},
         row_sharded=True, load=_load_m2trans),
-    # 36 SW-MSA + 6 OCA launches a forward at HAT_SRx4's depth
+    # 36 SW-MSA + 6 OCA launches a forward at HAT_SRx4's depth, and 86
+    # LayerNorms (two a block, the stem's and the body's)
     "HAT": ServedModel(
         HAT, _hat_forward,
-        {"hat_wattn": window_attention_16, "hat_oca": overlap_attention},
+        {"hat_wattn": window_attention_16, "hat_oca": overlap_attention,
+         "row_norm": row_norm},
         row_sharded=False, load=_load_hat),
-    # 36 scan launches a forward at MambaIR_SRx4's depth (one an SS2D)
+    # 36 scan launches a forward at MambaIR_SRx4's depth (one an SS2D), and
+    # 110 LayerNorms (three a block, the stem's and the body's)
     "MambaIR": ServedModel(
-        MambaIR, _mambair_forward, {"ss2d_scan": ss2d_scan},
+        MambaIR, _mambair_forward, {"ss2d_scan": ss2d_scan, "row_norm": row_norm},
         row_sharded=False, load=_load_mambair),
 }
 

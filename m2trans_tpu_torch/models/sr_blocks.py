@@ -11,7 +11,8 @@ dtype, ``models/numerics.py``'s kept operands), and the forward pieces on
 NHWC tensors:
 
 - :func:`linear`, :func:`conv` (3x3 zero pad 1, 1x1 or depthwise, cuDNN in
-  NHWC), :func:`layer_norm`;
+  NHWC), :func:`layer_norm` (one kernel with the residual sum before it or
+  the SiLU gate after it taken in, ``ops/kernels/row_norm.py``);
 - :func:`cab_apply`: conv 3x3 C -> C / compress, GELU, conv 3x3 back, times
   the sigmoid channel attention of its per-image channel means (squeeze C
   -> C / squeeze -> C), times ``scale`` (HAT's ``conv_scale``; 1 in
@@ -26,15 +27,16 @@ NHWC tensors:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from m2trans_tpu_torch.models.numerics import prepared
+from m2trans_tpu_torch.models.numerics import ComputePolicy, prepared
 from m2trans_tpu_torch.ops import on_device
+from m2trans_tpu_torch.ops.kernels.row_norm import row_norm, row_norm_plain
 from m2trans_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -131,8 +133,21 @@ def conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def layer_norm(mod: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.layer_norm(x, mod.normalized_shape, *params(mod, dtype), mod.eps)
+def layer_norm(mod: nn.LayerNorm, x: torch.Tensor, policy: ComputePolicy,
+               add: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
+               gate: Optional[torch.Tensor] = None):
+    """``mod``'s LayerNorm of NHWC ``x`` over its channels, in the form of
+    ``ops/kernels/row_norm.py`` that the arguments name: plain; with ``add``
+    the residual ``x * scale + add`` normed, returned as (residual, normed);
+    with ``gate`` the normed map times SiLU(gate). The wrapper where the
+    policy runs kernels (forward only on the card; the plain version for
+    CPU tensors), else the plain torch composition."""
+    w, b = params(mod, policy.dtype)
+    if not policy.kernels:
+        return row_norm_plain(x, w, b, mod.eps, add=add, scale=scale, gate=gate)
+    return row_norm(x.contiguous(), w, b, mod.eps,
+                    add=None if add is None else add.contiguous(), scale=scale,
+                    gate=None if gate is None else gate.contiguous())
 
 
 def cab_apply(cab: CAB, x: torch.Tensor, dtype, scale: float = 1.0) -> torch.Tensor:

@@ -96,6 +96,8 @@ SIGNATURES = {
                     I, I, I, I, I, F, P],          # B H W C heads scale stream
     "m2t_ss2d_scan": [P, P, P, P, P, P, P, P,     # x xdbl dtw dtb A Ds part y
                       I, I, I, I, I, P],           # B H W D R stream
+    "m2t_row_norm": [P, P, P, P, P, P, P,         # x other scale gamma beta xout out
+                     LL, I, I, F, P],              # rows C gated eps stream
 }
 
 _lock = threading.Lock()

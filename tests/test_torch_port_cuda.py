@@ -1654,8 +1654,8 @@ def _hat_cfg(**kw):
 def test_hat_graphed_forward_launches_and_bits(dev):
     """HAT_SRx4 at its published widths (seeded init): the serving forward
     replayed from a CUDA graph equals the eager forward bit for bit, its
-    capture counts 36 SW-MSA and 6 OCA launches, and it stays near the plain
-    bf16 forward (the attentions' plain versions, by name)."""
+    capture counts 36 SW-MSA, 6 OCA and 86 LayerNorm launches, and it stays
+    near the plain bf16 forward (the kernels' plain versions)."""
     from m2trans_tpu_torch.models.hat import hat_apply, init_hat
 
     cfg = _hat_cfg()
@@ -1664,7 +1664,8 @@ def test_hat_graphed_forward_launches_and_bits(dev):
     x = torch.rand(2, 64, 80, 3, generator=torch.Generator().manual_seed(2)).to(dev)
     gf = GraphedForward(model, cfg, policy)
     got = gf(x).clone()
-    assert gf.capture_launches[tuple(x.shape)] == {"hat_wattn": 36, "hat_oca": 6}
+    assert gf.capture_launches[tuple(x.shape)] == {"hat_wattn": 36, "hat_oca": 6,
+                                                   "row_norm": 86}
     with torch.inference_mode():
         want = serving_forward(model, x, cfg, policy, False)
         plain = hat_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
@@ -1676,7 +1677,8 @@ def test_hat_graphed_forward_launches_and_bits(dev):
 @pytest.mark.cuda
 def test_hat_infer_cli_on_a_release_pth(dev, tmp_path):
     """``python -m m2trans_tpu_torch.infer`` with the HAT yml and a seeded
-    ``.pth`` in the release layout: graphs with 36 + 6 launches a capture,
+    ``.pth`` in the release layout: graphs with 36 + 6 attention and 86
+    LayerNorm launches a capture,
     PNGs of 4x frames that are no multiple of the window, and nothing of
     jax or the JAX package loaded."""
     import json
@@ -1708,7 +1710,7 @@ def test_hat_infer_cli_on_a_release_pth(dev, tmp_path):
     assert lines[-1].strip() == "LOADED"
     report = json.loads(lines[-2])
     assert report["cuda_graphs"]["launches_per_capture"] == {
-        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6}}
+        "1x60x75x3": {"hat_wattn": 36, "hat_oca": 6, "row_norm": 86}}
     assert report["cuda_graphs"]["replays"] == 3
     assert sorted(os.listdir(tmp_path / "out")) == ["0.png", "1.png", "2.png"]
     assert np.asarray(Image.open(tmp_path / "out" / "0.png")).shape == (240, 300, 3)
@@ -1787,11 +1789,12 @@ def _mambair_cfg():
 def test_mambair_graphed_forward_launches_and_bits(dev):
     """MambaIR_SRx4 at its published widths (the release init): the serving
     forward replayed from a CUDA graph equals the eager forward bit for bit,
-    its capture counts 36 scan launches, it stays near the plain bf16
-    forward (the scan's plain version, by name); M2Trans's and HAT's
-    forwards launch no scan."""
+    its capture counts 36 scan and 110 LayerNorm launches, it stays near the
+    plain bf16 forward (the kernels' plain versions); M2Trans's and HAT's
+    forwards launch no scan, and M2Trans's no LayerNorm."""
     from m2trans_tpu_torch.models.hat import init_hat
     from m2trans_tpu_torch.models.mambair import init_mambair, mambair_apply
+    from m2trans_tpu_torch.ops.kernels.row_norm import row_norm
     from m2trans_tpu_torch.ops.kernels.ss2d_scan import ss2d_scan
 
     cfg = _mambair_cfg()
@@ -1800,20 +1803,21 @@ def test_mambair_graphed_forward_launches_and_bits(dev):
     x = torch.rand(2, 64, 80, 3, generator=torch.Generator().manual_seed(2)).to(dev)
     gf = GraphedForward(model, cfg, policy)
     got = gf(x).clone()
-    assert gf.capture_launches[tuple(x.shape)] == {"ss2d_scan": 36}
+    assert gf.capture_launches[tuple(x.shape)] == {"ss2d_scan": 36, "row_norm": 110}
     with torch.inference_mode():
         want = serving_forward(model, x, cfg, policy, False)
         plain = mambair_apply(model, x, cfg, ComputePolicy(torch.bfloat16, False)).float()
     assert got.shape == (2, 256, 320, 3) and torch.equal(got, want)
     assert torch.equal(gf(x), want)
     assert float((got - plain).abs().mean()) < 2e-3
-    n0 = ss2d_scan.launches
+    n0, r0 = ss2d_scan.launches, row_norm.launches
     small = Config(scale=4, n_feats=64, n_blocks=1, num_heads=4, dtype="bfloat16",
                    use_pallas=True)
     hat_cfg = _hat_cfg()
     with torch.inference_mode():
         serving_forward(init_m2trans(small, seed=0, device=dev), x[:1, :32, :32], small, policy,
                         False)
+        assert row_norm.launches == r0
         serving_forward(init_hat(hat_cfg, seed=0, device=dev), x[:1, :32, :32], hat_cfg, policy,
                         False)
     assert ss2d_scan.launches == n0
@@ -1822,8 +1826,8 @@ def test_mambair_graphed_forward_launches_and_bits(dev):
 @pytest.mark.cuda
 def test_mambair_infer_cli_on_a_release_pth(dev, tmp_path):
     """``python -m m2trans_tpu_torch.infer`` with the MambaIR yml and a
-    seeded ``.pth`` in the release layout (``params``): graphs with 36
-    launches a capture, PNGs of 4x frames, and nothing of jax or the JAX
+    seeded ``.pth`` in the release layout (``params``): graphs with 36 scan
+    and 110 LayerNorm launches a capture, PNGs of 4x frames, and nothing of jax or the JAX
     package loaded."""
     import json
     import os
@@ -1854,7 +1858,63 @@ def test_mambair_infer_cli_on_a_release_pth(dev, tmp_path):
     lines = res.stdout.strip().splitlines()
     assert lines[-1].strip() == "LOADED"
     report = json.loads(lines[-2])
-    assert report["cuda_graphs"]["launches_per_capture"] == {"1x60x75x3": {"ss2d_scan": 36}}
+    assert report["cuda_graphs"]["launches_per_capture"] == {
+        "1x60x75x3": {"ss2d_scan": 36, "row_norm": 110}}
     assert report["cuda_graphs"]["replays"] == 3
     assert sorted(os.listdir(tmp_path / "out")) == ["0.png", "1.png", "2.png"]
     assert np.asarray(Image.open(tmp_path / "out" / "0.png")).shape == (240, 300, 3)
+
+
+# The LayerNorm kernel (csrc/row_norm.cu) against its plain version, the
+# torch composition, on the same card tensors: x' (the residual forms'
+# sum) bit for bit; the normed rows within one bf16 step of the result,
+# since the two differ only in the order of the statistics' f32 sums, and
+# within one step of 2^-8 where the result is smaller (there the norm's
+# term and beta cancel, and those sums' last bits are many steps of what is
+# left); the gated rows within two, as a step of the norm's rounding carries
+# through the product with SiLU(z) (up to twice the product's own step)
+# before it rounds again.
+ROW_NORM_CASES = [(8, 96, 96, 180), (8, 96, 96, 360), (1, 37, 53, 180), (2, 37, 53, 360)]
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps of |want|, or of 2^-8 where |want| is
+    smaller (bf16 in)."""
+    top = want.float().abs().clamp_min(2.0 ** -8)
+    return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["plain", "residual", "scaled", "gated"])
+@pytest.mark.parametrize("shape", ROW_NORM_CASES)
+def test_row_norm_matches_plain(dev, shape, form):
+    """Each form at the served maps' shapes (HAT's and MambaIR's 180
+    channels, MambaIR's 360 of out_norm) and at ragged ones (an odd number
+    of rows, so a warp holds a row alone): a second call bit for bit, one
+    launch a call."""
+    from m2trans_tpu_torch.ops.kernels.row_norm import row_norm, row_norm_plain
+
+    g = torch.Generator().manual_seed(shape[-1] + shape[1])
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g) * 1.5 + torch.randn(c, generator=g)).bfloat16().to(dev)
+    other = (torch.randn(shape, generator=g) * 2.0).bfloat16().to(dev)
+    scale = (1.0 + 0.1 * torch.randn(c, generator=g)).bfloat16().to(dev)
+    w = (1.0 + 0.2 * torch.randn(c, generator=g)).bfloat16().to(dev)
+    b = (0.1 * torch.randn(c, generator=g)).bfloat16().to(dev)
+    kw = {"plain": {}, "residual": {"add": other}, "scaled": {"add": other, "scale": scale},
+          "gated": {"gate": other}}[form]
+    n0 = row_norm.launches
+    with torch.no_grad():
+        got = row_norm(x, w, b, 1e-5, **kw)
+        torch.cuda.synchronize()
+        again = row_norm(x, w, b, 1e-5, **kw)
+        want = row_norm_plain(x, w, b, 1e-5, **kw)
+    assert row_norm.launches == n0 + 2
+    if "add" in kw:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[0], again[0])
+        got, again, want = got[1], again[1], want[1]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == shape
+    assert torch.equal(got, again)
+    steps = _bf16_steps(got, want)
+    assert float(steps.max()) <= (2 if form == "gated" else 1), float(steps.max())
+    assert float((steps > 0).float().mean()) < 0.01

@@ -29,7 +29,7 @@ from m2trans_tpu_torch.config import Config, load_config
 from m2trans_tpu_torch.models import hat as port
 from m2trans_tpu_torch.models import served
 from m2trans_tpu_torch.models.numerics import ComputePolicy
-from m2trans_tpu_torch.ops.kernels import hat_attn
+from m2trans_tpu_torch.ops.kernels import hat_attn, row_norm
 from m2trans_tpu_torch.ops.kernels.swin_attn import window_attention_plain
 from m2trans_tpu_torch.parallel.streaming import StreamingSR
 
@@ -145,7 +145,8 @@ def test_init_hat_follows_the_release_init():
 def test_streaming_serves_hat_on_the_cpu():
     """``StreamingSR`` with HAT: the stream's frames are the eager
     forward's (bf16 with the kernels' wrappers, their plain versions on the
-    CPU); a mesh is refused; HAT's kernels are what a capture counts."""
+    CPU); a mesh is refused; HAT's kernels and the LayerNorm's are what a
+    capture counts."""
     sd = ref.state_dict(TINY, SEED, "cpu")
     net, cfg = _port(sd), _cfg()
     frames = [np.random.default_rng(i).random((2, 8, 12, 3), np.float32) for i in range(3)]
@@ -161,7 +162,8 @@ def test_streaming_serves_hat_on_the_cpu():
             assert np.abs(g - ref_out).mean() < 5e-3  # bf16 against f32
     assert served.of(net) is served.SERVED["HAT"]
     assert served.of(net).counted == {"hat_wattn": hat_attn.window_attention_16,
-                                      "hat_oca": hat_attn.overlap_attention}
+                                      "hat_oca": hat_attn.overlap_attention,
+                                      "row_norm": row_norm.row_norm}
     from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 
     with pytest.raises(ValueError, match="HAT runs on one device"):
@@ -203,7 +205,8 @@ def test_infer_cli_serves_hat(tmp_path):
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     report = json.loads(res.stdout.strip().splitlines()[-1])
-    assert report["frames"] == 2 and report["kernel_launches"] == {"hat_wattn": 0, "hat_oca": 0}
+    assert report["frames"] == 2 and report["kernel_launches"] == {"hat_wattn": 0, "hat_oca": 0,
+                                                                     "row_norm": 0}
     net, cfg = _port(sd), _cfg(dtype="bfloat16", use_pallas=True)
     x = np.asarray(Image.open(src / "0.png"), np.float32)[None] / 255.0
     with torch.no_grad():

@@ -32,7 +32,7 @@ from m2trans_tpu_torch.config import Config, load_config
 from m2trans_tpu_torch.models import mambair as port
 from m2trans_tpu_torch.models import served
 from m2trans_tpu_torch.models.numerics import ComputePolicy
-from m2trans_tpu_torch.ops.kernels import ss2d_scan
+from m2trans_tpu_torch.ops.kernels import row_norm, ss2d_scan
 from m2trans_tpu_torch.parallel.streaming import StreamingSR
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -223,7 +223,7 @@ def test_init_mambair_follows_the_release_init():
 def test_streaming_serves_mambair_on_the_cpu(seeded):
     """``StreamingSR`` with MambaIR: the stream's frames are the eager
     forward's (bf16 with the scan wrapper, its plain version on the CPU); a
-    mesh is refused; the scan is what a capture counts."""
+    mesh is refused; the scan and the LayerNorm are what a capture counts."""
     sd, net = seeded
     cfg = _cfg()
     frames = [np.random.default_rng(i).random((2, 8, 12, 3), np.float32) for i in range(3)]
@@ -235,7 +235,8 @@ def test_streaming_serves_mambair_on_the_cpu(seeded):
             want = port.mambair_apply(net, torch.from_numpy(f), cfg, policy).float().numpy()
             assert g.shape == (2, 32, 48, 3) and np.array_equal(g, want)
     assert served.by_name("MambaIR") is served.of(net) is served.SERVED["MambaIR"]
-    assert served.of(net).counted == {"ss2d_scan": ss2d_scan.ss2d_scan}
+    assert served.of(net).counted == {"ss2d_scan": ss2d_scan.ss2d_scan,
+                                      "row_norm": row_norm.row_norm}
     assert not served.of(net).row_sharded
     from m2trans_tpu_torch.parallel.mesh import SpaceMesh
 
@@ -280,7 +281,7 @@ def test_infer_cli_serves_mambair(tmp_path, seeded):
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     report = json.loads(res.stdout.strip().splitlines()[-1])
-    assert report["frames"] == 2 and report["kernel_launches"] == {"ss2d_scan": 0}
+    assert report["frames"] == 2 and report["kernel_launches"] == {"ss2d_scan": 0, "row_norm": 0}
     cfg = _cfg(dtype="bfloat16", use_pallas=True)
     x = np.asarray(Image.open(src / "0.png"), np.float32)[None] / 255.0
     with torch.no_grad():
